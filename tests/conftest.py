@@ -22,3 +22,9 @@ def trace_counter():
     to assert the window added zero new jit traces."""
     from repro.lint.runtime import TraceCounter, scan_trace_targets
     return TraceCounter(scan_trace_targets())
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips (from a fixture) on "
+                   "machines without one")
