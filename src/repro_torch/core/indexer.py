@@ -17,15 +17,15 @@ class IndexConfig:
 
     The JAX package's ``use_kernels`` has no counterpart here: the device
     of the tensors chooses, so CUDA tensors launch the hand-written kernels
-    and CPU tensors take their plain PyTorch versions.  The LSM, refresh,
-    LBH-learning and EH knobs come with the slices that port those parts.
+    and CPU tensors take their plain PyTorch versions.  ``rerank`` and the
+    LSM, refresh, LBH-learning and EH knobs come with the slices that port
+    their readers (``HyperplaneIndex``, the LSM index, refresh, learning).
     """
 
     method: str = "lbh"            # bh | lbh (lbh families are carried in)
     bits: int = 20                 # bits per table code
     radius: int = 4                # Hamming-ball probe radius
     seed: int = 0
-    rerank: bool = True            # exact-margin re-rank of candidates
     max_candidates: int = 4096
     # escalate the probe radius until at least this many candidates are in
     # hand (None = fixed radius)
@@ -38,7 +38,9 @@ class IndexConfig:
     # REPRO_FUSED_SELECT (default hist).  Bit-identical either way.
     fused_select: str | None = None
     # method="bh": generate each table's factors from a 32-bit seed
-    # (SeededBHHash), so the hash kernel reads no projection weights
+    # (SeededBHHash), so the hash kernel reads no projection weights.
+    # False (factors drawn by the JAX package) raises at fit: carry such
+    # families in through repro_torch.interop.families_from_numpy.
     seeded_projections: bool = True
     # fused-scan candidate emission width: "16", "8" or "none"; None
     # honours REPRO_CAND_PACK (default 16).  Bit-identical for every width.

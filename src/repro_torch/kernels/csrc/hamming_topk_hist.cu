@@ -191,9 +191,10 @@ cudaError_t launch(const void* codes, const void* queries, const void* active,
 
 }  // namespace
 
-// Shared memory one block needs; the caller refuses shapes above 227 KB.
-extern "C" long long topk_hist_smem_bytes(int w, int block_n) {
-  return static_cast<long long>(smem_bytes(w, block_n));
+// 1 if one block of this shape fits the shared memory a block may use
+// (kMaxSmem), else 0; topk_hist_launch refuses the shapes that do not.
+extern "C" int topk_hist_fits(int w, int block_n) {
+  return smem_bytes(w, block_n) <= kMaxSmem ? 1 : 0;
 }
 
 // codes: (groups, n, w) uint32; queries: (groups, nq, w) uint32; active:
@@ -205,7 +206,7 @@ extern "C" int topk_hist_launch(const void* codes, const void* queries,
                                 int groups, int n, int w, int nq, int l_k,
                                 int block_n, int grid_n, int pack, int d_sent,
                                 void* stream) {
-  if (smem_bytes(w, block_n) > kMaxSmem) {
+  if (!topk_hist_fits(w, block_n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);

@@ -24,11 +24,10 @@ from repro_torch.utils.bits import hamming_packed
 CAND_SENTINELS = {"none": DIST_SENTINEL, "16": 0x7FFF, "8": 0xFF}
 _CAND_ID_MAX = 0x7FFF
 _PACK_CODE = {"none": 0, "16": 1, "8": 2}
-MAX_SMEM_BYTES = 232448        # 227 KB: the most one block may use (sm_90)
 
 LIBRARY = "hamming_topk_hist"
 _SIGNATURES = {
-    "topk_hist_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "topk_hist_fits": (ctypes.c_int, [ctypes.c_int] * 2),
     "topk_hist_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
 }
@@ -144,7 +143,7 @@ def hamming_topk_hist(codes, queries, l_k: int, block_n: int, active=None,
     if out_d.numel() == 0:
         return out_d, out_i
     lib = _build.load(LIBRARY, _SIGNATURES)
-    if lib.topk_hist_smem_bytes(w, block_n) > MAX_SMEM_BYTES:
+    if not lib.topk_hist_fits(w, block_n):
         raise ValueError(f"W = {w} at block_n = {block_n} needs more shared "
                          f"memory than one block may use")
     with torch.cuda.device(codes.device):

@@ -92,14 +92,13 @@ class MultiTableIndex:
                 f"method {cfg.method!r}: its families are learned by the JAX "
                 f"package; pass them in (fit(x, families=...), see "
                 f"repro_torch.interop)")
-        seed = F.table_seed(cfg.seed, t)
-        if cfg.seeded_projections:
-            return F.SeededBHHash.create(seed, d, cfg.bits, self.device)
-        rng = np.random.default_rng(seed)
-        u, v = (torch.from_numpy(rng.standard_normal((d, cfg.bits),
-                                                     dtype=np.float32))
-                for _ in range(2))
-        return F.BHHash(u.to(self.device), v.to(self.device))
+        if not cfg.seeded_projections:
+            raise NotImplementedError(
+                "method 'bh' with seeded_projections=False: its factors are "
+                "drawn by the JAX package; pass them in (fit(x, families=...),"
+                " see repro_torch.interop.families_from_numpy)")
+        return F.SeededBHHash.create(F.table_seed(cfg.seed, t), d, cfg.bits,
+                                     self.device)
 
     def fit(self, x, families=None) -> "MultiTableIndex":
         """Hash every row of x into the L tables and build them.  families:

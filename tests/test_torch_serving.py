@@ -284,3 +284,16 @@ def test_empty_index_and_pre_fit_errors(corpus, queries):
         idx.query_scan_batch(queries[:3], mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         TService(idx, mode="scan", mesh=object())
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(method="lbh"),
+    dict(method="bh", seeded_projections=False),
+], ids=["lbh", "bh-unseeded"])
+def test_unported_families_raise_at_fit(corpus, overrides):
+    """Families the JAX package draws or learns are carried in, never
+    invented by the port: building them from the config raises."""
+    from repro_torch.serving.multi_table import MultiTableIndex
+    idx = MultiTableIndex(TConfig(**{**CFG, **overrides}), device="cpu")
+    with pytest.raises(NotImplementedError, match="interop"):
+        idx.fit(corpus.x[:50])
