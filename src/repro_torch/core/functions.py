@@ -7,10 +7,12 @@ flip h(P_w) = -h(w); signs are int8 in {-1, +1} with sgn(0) = +1.
 BH-Hash (the paper's contribution, eq. 6/7):
     h(z) = sgn(u^T z z^T v) = sgn((u.z)(v.z))
 
-No random draws happen here: a SeededBHHash is built from its 32-bit seed
-through the counter-based generator below, and BHHash / LBHHash take their
-factors as given tensors (drawn or learned elsewhere and carried in, see
-``repro_torch.interop``).
+A SeededBHHash is built from its 32-bit seed through the counter-based
+generator below; BHHash and LBHHash take their factors as given tensors
+(LBH factors are learned by ``core.learning.learn_lbh``).  The AH and EH
+baselines draw from an explicit ``torch.Generator``: jax.random streams
+cannot be replayed in torch, so a family drawn by the JAX package is
+carried in (``repro_torch.interop``).
 """
 from __future__ import annotations
 
@@ -178,8 +180,143 @@ class SeededBHHash(BHHash):
 
 @dataclasses.dataclass(frozen=True)
 class LBHHash(BHHash):
-    """Compact learned bilinear hashing (paper §4), evaluation only: the
-    factors are learned by the JAX package and carried in."""
+    """Compact learned bilinear hashing (paper §4).
+
+    Identical evaluation path to BHHash; only the factors differ (learned
+    by ``repro_torch.core.learning.learn_lbh``)."""
+
+
+def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """N(0, 1) float32 draws from ``generator`` (a CPU generator, so a
+    seed gives the same values whatever the device), moved to device."""
+    return torch.randn(shape, generator=generator).to(device)
+
+
+# ---------------------------------------------------------------------------
+# AH-Hash (Jain et al. 2010; eq. 2) — baseline
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AHHash:
+    """Angle-Hyperplane Hash: two bits per (u, v) pair.
+
+    k is the *total* number of bits and must be even; there are k/2
+    (u, v) pairs.  The paper uses 2x the bits of BH/EH for fairness.
+    """
+
+    u: torch.Tensor  # (d, k//2)
+    v: torch.Tensor  # (d, k//2)
+
+    @classmethod
+    def create(cls, generator: torch.Generator, d: int, k: int,
+               device="cuda") -> "AHHash":
+        if k % 2:
+            raise ValueError(f"AH-Hash emits bit pairs; k must be even, "
+                             f"got {k}")
+        dev = resolve_device(device)
+        return cls(_normal(generator, (d, k // 2), dev),
+                   _normal(generator, (d, k // 2), dev))
+
+    @property
+    def k(self) -> int:
+        return 2 * self.u.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.u.device
+
+    @staticmethod
+    def _interleave(a, b):
+        # [sgn(u1.z), sgn(v1.z), sgn(u2.z), ...] per the 2-bit structure
+        return torch.stack([a, b], dim=-1).reshape(a.shape[0], -1)
+
+    def signs_database(self, z):
+        with strict_fp32():
+            return self._interleave(_sgn(z @ self.u), _sgn(z @ self.v))
+
+    def signs_query(self, w):
+        with strict_fp32():
+            return self._interleave(_sgn(w @ self.u), _sgn(-(w @ self.v)))
+
+    def hash_database(self, z):
+        return pack_signs(self.signs_database(z))
+
+    def hash_query(self, w):
+        return pack_signs(self.signs_query(w))
+
+
+# ---------------------------------------------------------------------------
+# EH-Hash (Jain et al. 2010; eq. 4) — baseline
+# ---------------------------------------------------------------------------
+
+# Rows of z evaluated at once by EHHash: bounds the (rows, d) intermediate
+# of each projection (the JAX package's one einsum would hold n·k·d floats,
+# 32 GB at n = 1.06M).
+EH_ROW_CHUNK = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class EHHash:
+    """Embedding-Hyperplane Hash: sgn(U . vec(z z^T)).
+
+    Each of the k projections is kept as a d x d matrix M_j and evaluated
+    as z^T M_j z, the same inner product without the d^2 embedding.
+    ``dims`` is the paper's dimension-sampling speed-up: project onto a
+    random subset of coordinates first.
+    """
+
+    mats: torch.Tensor  # (k, d_eff, d_eff)
+    dims: torch.Tensor | None = None  # optional (d_sub,) sampled coordinates
+
+    @classmethod
+    def create(cls, generator: torch.Generator, d: int, k: int,
+               sample_dims: int | None = None, device="cuda") -> "EHHash":
+        dev = resolve_device(device)
+        d_eff = sample_dims or d
+        mats = _normal(generator, (k, d_eff, d_eff), dev)
+        dims = None
+        if sample_dims is not None:
+            dims = torch.randperm(d, generator=generator)[:sample_dims].to(
+                dev)
+        return cls(mats, dims)
+
+    @property
+    def k(self) -> int:
+        return self.mats.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mats.device
+
+    def _scores(self, z):
+        """(n, k) float32 z^T M_j z, one projection and one row chunk at a
+        time."""
+        if self.dims is not None:
+            z = z[:, self.dims]
+        out = torch.empty((z.shape[0], self.k), dtype=torch.float32,
+                          device=z.device)
+        with strict_fp32():
+            for s in range(0, z.shape[0], EH_ROW_CHUNK):
+                zc = z[s:s + EH_ROW_CHUNK]
+                for j in range(self.k):
+                    out[s:s + EH_ROW_CHUNK, j] = ((zc @ self.mats[j])
+                                                  * zc).sum(dim=1)
+        return out
+
+    def signs_database(self, z):
+        return _sgn(self._scores(z))
+
+    def signs_query(self, w):
+        return _sgn(-self._scores(w))
+
+    def hash_database(self, z):
+        return pack_signs(self.signs_database(z))
+
+    def hash_query(self, w):
+        return pack_signs(self.signs_query(w))
+
+
+FAMILIES = {"ah": AHHash, "eh": EHHash, "bh": BHHash, "lbh": LBHHash}
 
 
 def query_lookup_code(family, w):

@@ -1,14 +1,25 @@
-"""Index configuration and the per-query result record.
+"""High-level index API: the index configuration, the per-query result,
+the hash family a table is built with (``make_family``) and the
+single-table ``HyperplaneIndex``.
 
-``HyperplaneIndex`` (the single-table index) comes with the slice that
-ports ``bilinear_hash_kernel``; this module holds what the multi-table
-serving path needs.
+The JAX package's ``ActivationIndexer`` (an LM backbone as the feature
+extractor) comes with the LM scaffolding, last in the port's order.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
+import torch
+
+from repro_torch.core import functions as F
+from repro_torch.core import learning as L
+from repro_torch.core.search import margin_rerank
+from repro_torch.core.tables import SingleHashTable
+from repro_torch.kernels import ops
+from repro_torch.utils.bits import from_numpy_u32, to_numpy_u32
+from repro_torch.utils.device import as_float_tensor, resolve_device
 
 
 @dataclasses.dataclass
@@ -17,15 +28,15 @@ class IndexConfig:
 
     The JAX package's ``use_kernels`` has no counterpart here: the device
     of the tensors chooses, so CUDA tensors launch the hand-written kernels
-    and CPU tensors take their plain PyTorch versions.  ``rerank`` and the
-    LSM, refresh, LBH-learning and EH knobs come with the slices that port
-    their readers (``HyperplaneIndex``, the LSM index, refresh, learning).
+    and CPU tensors take their plain PyTorch versions.  The LSM and refresh
+    knobs come with the slices that port their readers.
     """
 
-    method: str = "lbh"            # bh | lbh (lbh families are carried in)
-    bits: int = 20                 # bits per table code
+    method: str = "lbh"            # ah | eh | bh | lbh
+    bits: int = 20                 # total bits (AH uses bit pairs; even)
     radius: int = 4                # Hamming-ball probe radius
     seed: int = 0
+    rerank: bool = True            # exact-margin re-rank of candidates
     max_candidates: int = 4096
     # escalate the probe radius until at least this many candidates are in
     # hand (None = fixed radius)
@@ -45,6 +56,12 @@ class IndexConfig:
     # fused-scan candidate emission width: "16", "8" or "none"; None
     # honours REPRO_CAND_PACK (default 16).  Bit-identical for every width.
     cand_pack: str | None = None
+    # LBH learning: sample size, Nesterov steps per bit, step size
+    lbh_sample: int = 1000
+    lbh_steps: int = 150
+    lbh_lr: float = 0.03
+    # EH dimension-sampling trick (paper §5.2); None = exact d^2 embedding
+    eh_sample_dims: int | None = None
 
 
 @dataclasses.dataclass
@@ -55,3 +72,130 @@ class QueryResult:
     nonempty: bool                # did the hash lookup return anything?
     lookup_s: float
     rerank_s: float
+
+
+def make_family(config: IndexConfig, x: torch.Tensor, t: int = 0):
+    """The hash family of table t of an index built with ``config`` over
+    the rows of x (a float32 tensor on the index's device).
+
+    Every draw derives from ``functions.table_seed(config.seed, t)``, so a
+    single-table index and table 0 of a multi-table index get the same
+    family: seeded BH uses it as the factors' seed; AH and EH draw from a
+    CPU ``torch.Generator`` seeded with it; LBH warm-starts at the seeded
+    BH factors and samples its m = min(lbh_sample, n) rows with it.
+    Unseeded BH factors are drawn only by the JAX package: carry them in.
+    """
+    d = x.shape[1]
+    seed = F.table_seed(config.seed, t)
+    if config.method in ("ah", "eh"):
+        gen = torch.Generator().manual_seed(seed)
+        if config.method == "ah":
+            return F.AHHash.create(gen, d, config.bits, x.device)
+        return F.EHHash.create(gen, d, config.bits,
+                               sample_dims=config.eh_sample_dims,
+                               device=x.device)
+    if config.method == "bh":
+        if not config.seeded_projections:
+            raise NotImplementedError(
+                "method 'bh' with seeded_projections=False: its factors are "
+                "drawn by the JAX package; pass them in (see "
+                "repro_torch.interop.families_from_numpy)")
+        return F.SeededBHHash.create(seed, d, config.bits, x.device)
+    if config.method == "lbh":
+        m = min(config.lbh_sample, x.shape[0])
+        rows = L.sample_rows(x.shape[0], m, seed).to(x.device)
+        u0, v0 = F.seeded_projections(seed, d, config.bits, x.device)
+        return L.learn_lbh(x[rows], config.bits, u0, v0, x_all=x,
+                           steps=config.lbh_steps, lr=config.lbh_lr).family
+    raise ValueError(f"unknown method {config.method!r}")
+
+
+class HyperplaneIndex:
+    """Point-to-hyperplane search index (single table, compact codes).
+
+    Host state: the bucket table and the packed codes; the features and the
+    codes also live on the index's device for the scan and the re-rank.
+    """
+
+    def __init__(self, config: IndexConfig, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.family = None
+        self.table: SingleHashTable | None = None
+        self.codes: torch.Tensor | None = None   # (n, W) int32, device
+        self.x: torch.Tensor | None = None       # (n, d) float32, device
+        self.fit_s = 0.0
+
+    # -- build ---------------------------------------------------------------
+
+    def fit(self, x, family=None) -> "HyperplaneIndex":
+        """Hash every row of x and build the table.  family: optional hash
+        family carried in (default: ``make_family`` from the config, which
+        learns LBH for method="lbh")."""
+        t0 = time.perf_counter()
+        x = as_float_tensor(x, self.device)
+        if family is None:
+            family = make_family(self.config, x)
+        self.restore(family, x, self._hash_database(family, x))
+        self.fit_s = time.perf_counter() - t0
+        return self
+
+    @staticmethod
+    def _hash_database(family, x: torch.Tensor) -> torch.Tensor:
+        """(n, W) database codes: seeded BH through the seeded hash kernel,
+        other BH / LBH families through the materialised-factor kernel
+        (plain versions on the CPU), AH / EH through their own matmuls."""
+        if type(family) is F.SeededBHHash:
+            return ops.bilinear_hash_seeded_grouped(x, [family.seed],
+                                                    family.k)[0]
+        if isinstance(family, F.BHHash):
+            return ops.bilinear_hash(x, family.u, family.v)
+        return family.hash_database(x)
+
+    def restore(self, family, x, codes) -> "HyperplaneIndex":
+        """Adopt a fitted state without hashing: the family, the (n, d)
+        features and the (n, W) packed codes (uint32 array or int32 bit
+        carrier)."""
+        if not torch.is_tensor(codes):
+            codes = from_numpy_u32(codes)
+        self.family = family
+        self.x = as_float_tensor(x, self.device)
+        self.codes = codes.to(self.device).contiguous()
+        self.table = SingleHashTable(to_numpy_u32(self.codes),
+                                     self.config.bits)
+        return self
+
+    # -- query ---------------------------------------------------------------
+
+    def query(self, w) -> QueryResult:
+        """Paper query path: flip-code table lookup + exact-margin re-rank."""
+        cfg = self.config
+        w = as_float_tensor(w, self.device)
+        t0 = time.perf_counter()
+        qcode = to_numpy_u32(self.family.hash_query(w[None, :]))[0]
+        cand = self.table.lookup(qcode, cfg.radius, cfg.max_candidates,
+                                 cfg.min_candidates)
+        t1 = time.perf_counter()
+        if cand.size == 0:
+            return QueryResult(-1, float("inf"), cand, False, t1 - t0, 0.0)
+        if cfg.rerank:
+            margins, ids = margin_rerank(
+                self.x, w, torch.from_numpy(cand).to(self.device), 1)
+            idx, margin = int(ids[0]), float(margins[0])
+        else:
+            idx, margin = int(cand[0]), float("nan")
+        t2 = time.perf_counter()
+        return QueryResult(idx, margin, cand, True, t1 - t0, t2 - t1)
+
+    def query_scan(self, w, l: int = 16) -> tuple[int, float]:
+        """Device-side scan path (no table): top-l by Hamming distance
+        through the fused scan kernel, then exact re-rank."""
+        w = as_float_tensor(w, self.device)
+        qcode = self.family.hash_query(w[None, :])[0]
+        _, idx = ops.hamming_topk(self.codes, qcode, l,
+                                  pack=self.config.cand_pack)
+        # l > n slots carry id -1 and always sit at the sorted tail: slice
+        # them off before the re-rank gather (x[-1] would alias the last row)
+        margins, ids = margin_rerank(self.x, w,
+                                     idx[:min(l, self.codes.shape[0])], 1)
+        return int(ids[0]), float(margins[0])

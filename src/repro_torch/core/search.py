@@ -17,6 +17,7 @@ import os
 
 import torch
 
+from repro_torch.core.functions import strict_fp32
 from repro_torch.utils.bits import hamming_packed
 
 # Fill distance for masked rows and impossible top-k slots (l > n): far
@@ -73,6 +74,27 @@ def lex_smallest(dists: torch.Tensor, ids: torch.Tensor, l: int):
     key = torch.sort(key, dim=-1).values[..., :l]
     return (key >> 32).to(torch.int32), ((key & 0xFFFFFFFF) - 1).to(
         torch.int32)
+
+
+def hamming_topk(codes, query, l: int):
+    """Single-table scan: smallest-distance top-l of one query.
+
+    codes: (n, W) int32; query: (W,) int32 -> (dists (l,), ids (l,)) int32,
+    ties to the lowest id; when l > n the tail slots carry
+    (DIST_SENTINEL, -1), matching the kernel path (kernels.ops.hamming_topk).
+    """
+    d, i = hamming_topk_batch(codes, query[None, :], l)
+    return d[0], i[0]
+
+
+def hamming_topk_batch(codes, queries, l: int):
+    """Batched single-table scan: top-l per query in one pass.
+
+    codes: (n, W) int32; queries: (B, W) int32 -> (dists (B, l),
+    ids (B, l)); l > n tails are (DIST_SENTINEL, -1).
+    """
+    d, i = _grouped_topk_lax(codes[None], queries[None], l)
+    return d[0], i[0]
 
 
 def hamming_topk_grouped(codes, queries, l: int, select: str | None = None,
@@ -156,6 +178,21 @@ def _margins(x, w_batch, rows):
     m = torch.abs(torch.sum(cx * w_batch[:, None, :], dim=-1))
     return m / torch.clamp(torch.linalg.vector_norm(w_batch, dim=1,
                                                     keepdim=True), min=1e-12)
+
+
+def margin_rerank(x, w, candidates, l: int):
+    """Exact re-rank of one candidate list by margin |w.x| / ||w||.
+
+    x: (n, d) database; w: (d,) normal; candidates: (c,) int ids.  Returns
+    (margins (l,), ids (l,)) ascending by margin, ties to the lowest
+    candidate position (``jax.lax.top_k``'s order).
+    """
+    with strict_fp32():
+        m = torch.abs(x[candidates] @ w)
+    m = m / torch.clamp(torch.linalg.vector_norm(w), min=1e-12)
+    m, sel = torch.sort(m, stable=True)
+    k = min(l, candidates.shape[0])
+    return m[:k], candidates[sel[:k]]
 
 
 def margin_rerank_batch(x, w_batch, candidates, valid, l: int):

@@ -1,44 +1,61 @@
 """Carry the JAX package's index state across as numpy arrays.
 
 The port never reads a jax object: callers (the parity tests) take plain
-arrays out of a JAX ``MultiTableIndex`` and hand them here.
+arrays out of a JAX ``MultiTableIndex`` or ``HyperplaneIndex`` and hand
+them here.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.functions import BHHash, LBHHash, SeededBHHash
-from repro_torch.core.indexer import IndexConfig
+from repro_torch.core import functions as F
+from repro_torch.core.indexer import HyperplaneIndex, IndexConfig
 from repro_torch.serving.multi_table import MultiTableIndex
 from repro_torch.utils.device import resolve_device
 
+_UV_KINDS = {"bh": F.BHHash, "lbh": F.LBHHash, "ah": F.AHHash}
+
 
 def families_from_numpy(specs, device="cuda") -> list:
-    """Port hash families from specs ``{"kind": "seeded_bh" | "bh" | "lbh",
-    "seed": int (seeded_bh only), "u": (d, k), "v": (d, k)}``.
+    """Port hash families from specs, one dict each:
+
+    - ``{"kind": "seeded_bh", "seed": int, "u": (d, k), "v": (d, k)}``;
+    - ``{"kind": "bh" | "lbh" | "ah", "u": (d, k'), "v": (d, k')}``
+      (AH: k' = k/2 bit pairs);
+    - ``{"kind": "eh", "mats": (k, d', d'), "dims": (d',) or None}``.
 
     A seeded family is rebuilt from its seed by the port's generator (its
     u/v give the shape; the port's values agree with JAX's within a few
     float32 ulp, and the kernel regenerates them from the seed anyway).
-    bh / lbh families take u, v as given.
+    The other kinds take their arrays as given.
     """
     dev = resolve_device(device)
     out = []
     for spec in specs:
         kind = spec["kind"]
+        if kind == "eh":
+            mats = np.array(spec["mats"], dtype=np.float32)
+            if mats.ndim != 3 or mats.shape[1] != mats.shape[2]:
+                raise ValueError(f"mats must be a (k, d, d) array, got "
+                                 f"{mats.shape}")
+            dims = spec.get("dims")
+            out.append(F.EHHash(
+                torch.from_numpy(mats).to(dev),
+                None if dims is None else torch.from_numpy(
+                    np.array(dims, dtype=np.int64)).to(dev)))
+            continue
         u = np.array(spec["u"], dtype=np.float32)      # own, writable
         v = np.array(spec["v"], dtype=np.float32)
         if u.ndim != 2 or u.shape != v.shape:
             raise ValueError(f"u and v must be equal (d, k) arrays, got "
                              f"{u.shape} and {v.shape}")
         if kind == "seeded_bh":
-            out.append(SeededBHHash.create(int(spec["seed"]), u.shape[0],
-                                           u.shape[1], dev))
-        elif kind in ("bh", "lbh"):
-            cls = BHHash if kind == "bh" else LBHHash
-            out.append(cls(torch.from_numpy(u).to(dev),
-                           torch.from_numpy(v).to(dev)))
+            out.append(F.SeededBHHash.create(int(spec["seed"]), u.shape[0],
+                                             u.shape[1], dev))
+        elif kind in _UV_KINDS:
+            out.append(_UV_KINDS[kind](torch.from_numpy(u).to(dev),
+                                       torch.from_numpy(v).to(dev)))
         else:
             raise ValueError(f"unknown family kind {kind!r}")
     return out
@@ -55,3 +72,15 @@ def index_from_numpy(config: IndexConfig, families, x, codes, active, ids_np,
     index = MultiTableIndex(config, tables=len(codes), device=device)
     return index.restore(families_from_numpy(families, index.device), x,
                          codes, active, ids_np, next_id)
+
+
+def hyperplane_index_from_numpy(config: IndexConfig, family, x, codes,
+                                device="cuda") -> HyperplaneIndex:
+    """A fitted port ``HyperplaneIndex`` holding a JAX index's state.
+
+    family: one spec as in ``families_from_numpy``; x: (n, d) features;
+    codes: (n, W) uint32 packed codes.
+    """
+    index = HyperplaneIndex(config, device=device)
+    (fam,) = families_from_numpy([family], index.device)
+    return index.restore(fam, x, codes)

@@ -1,11 +1,15 @@
-"""Seed-generated bilinear hash: the CUDA kernel's wrapper, its launch
-count and its plain PyTorch version.
+"""Bilinear hash kernels: each CUDA kernel's wrapper, its launch count and
+its plain PyTorch version.
 
-codes = pack( sgn((X U_g) .* (X V_g)) ) for G tables, U_g / V_g generated
-from the table's 32-bit seed.  The kernel (csrc/bilinear_hash_seeded.cu)
-replaces the TPU kernel ``bilinear_hash_seeded_kernel``
-(src/repro/kernels/bilinear_hash.py:125): it regenerates the factors on
-the card and reads x once for all G tables.
+codes = pack( sgn((X U) .* (X V)) ), LSB-first, bits past k set to 0.
+
+- ``bilinear_hash`` (csrc/bilinear_hash.cu) hashes with materialised
+  (d, k) factors, the learned LBH and drawn BH families; it replaces the
+  TPU kernel ``bilinear_hash_kernel`` (src/repro/kernels/bilinear_hash.py:52).
+- ``bilinear_hash_seeded`` (csrc/bilinear_hash_seeded.cu) hashes for G
+  tables whose U_g / V_g are generated from each table's 32-bit seed; it
+  replaces ``bilinear_hash_seeded_kernel`` (same file, :125): it
+  regenerates the factors on the card and reads x once for all G tables.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import bilinear_hash_seeded_ref
+from repro_torch.kernels.ref import (bilinear_hash_ref,
+                                     bilinear_hash_seeded_ref)
 from repro_torch.utils.bits import n_words
 
 LIBRARY = "bilinear_hash_seeded"
@@ -23,6 +28,63 @@ _SIGNATURES = {
     "bh_seeded_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
+FACTORS_LIBRARY = "bilinear_hash"
+_FACTORS_SIGNATURES = {
+    "bh_rows_per_block": (ctypes.c_int, [ctypes.c_int]),
+    "bh_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
+
+
+def bilinear_hash_plain(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Plain version: strict-fp32 matmuls, sign, pack
+    (``ref.bilinear_hash_ref``).  Returns (n, ceil(k/32)) int32."""
+    return bilinear_hash_ref(x, u, v)
+
+
+def bilinear_hash(x: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Packed bilinear codes from materialised factors: (n, ceil(k/32))
+    int32, pad bits past k set to 0.
+
+    x: (n, d), u, v: (d, k), all contiguous float32 on one device.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (and
+    counts the launch in ``bilinear_hash.launches``) or raises.
+    """
+    if x.device.type == "cpu":
+        return bilinear_hash_plain(x, u, v)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dim() != 2 or u.dim() != 2 or u.shape[0] != x.shape[1]:
+        raise ValueError(f"need x (n, d) and u, v (d, k), got "
+                         f"{tuple(x.shape)} and {tuple(u.shape)}")
+    n, d = x.shape
+    k = u.shape[1]
+    for name, t, shape in (("x", x, (n, d)), ("u", u, (d, k)),
+                           ("v", v, (d, k))):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor of "
+                             f"shape {shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    out = torch.empty((n, n_words(k)), dtype=torch.int32, device=x.device)
+    if n == 0 or k == 0:
+        return out
+    lib = _build.load(FACTORS_LIBRARY, _FACTORS_SIGNATURES)
+    if lib.bh_rows_per_block(d) == 0:
+        raise ValueError(f"d = {d} is too wide for the hash kernel's "
+                         f"shared-memory row tile")
+    with torch.cuda.device(x.device):
+        err = lib.bh_launch(x.data_ptr(), u.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), n, d, k,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bilinear_hash launch failed: CUDA error {err}")
+    bilinear_hash.launches += 1
+    return out
+
+
+bilinear_hash.launches = 0
 
 
 def seeds_as_int32(seeds) -> list[int]:

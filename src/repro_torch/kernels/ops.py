@@ -7,13 +7,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.functions import strict_fp32
 from repro_torch.core.search import (DIST_SENTINEL, _grouped_topk_lax,
                                      _pad_topk, env_cand_pack,
                                      env_fused_select, lex_smallest)
+from repro_torch.kernels import bilinear_hash as _bh
+from repro_torch.kernels import lbh_grad as _lbh
 from repro_torch.kernels.bilinear_hash import bilinear_hash_seeded
 from repro_torch.kernels.hamming import cand_encoding, hamming_topk_hist
 
 SUBLANE = 8   # row-block sizes are multiples of 8, as in the JAX package
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
 
 
 def _block_rows(n: int, block_n: int) -> int:
@@ -22,6 +29,16 @@ def _block_rows(n: int, block_n: int) -> int:
     geometry, so block-local outputs line up with its kernel's)."""
     bn = min(block_n, max(256, n))
     return -(-bn // SUBLANE) * SUBLANE
+
+
+def bilinear_hash(x, u, v) -> torch.Tensor:
+    """Packed BH/LBH codes from materialised factors.
+
+    x: (n, d); u, v: (d, k).  Returns (n, ceil(k/32)) int32 carrying
+    uint32 bits, pad bits past k set to 0: the JAX wrapper's output
+    without its block padding (the kernel takes any n, d, k).
+    """
+    return _bh.bilinear_hash(_f32(x), _f32(u), _f32(v))
 
 
 def bilinear_hash_seeded_grouped(x, seeds, k: int) -> torch.Tensor:
@@ -34,8 +51,7 @@ def bilinear_hash_seeded_grouped(x, seeds, k: int) -> torch.Tensor:
     """
     if torch.is_tensor(seeds):
         seeds = seeds.tolist()
-    x = x.to(torch.float32).contiguous()
-    return bilinear_hash_seeded(x, [int(s) for s in seeds], k)
+    return bilinear_hash_seeded(_f32(x), [int(s) for s in seeds], k)
 
 
 def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
@@ -87,3 +103,37 @@ def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
     ci = ci.permute(0, 2, 1, 3).reshape(g, b, grid_n * l_k)
     cd, ci = _pad_topk(*lex_smallest(cd, ci, l), l)
     return cd, torch.where(cd >= DIST_SENTINEL, -1, ci)
+
+
+def hamming_topk(codes, query, l: int, *, block_n: int = 4096,
+                 select: str | None = None, pack: str | None = None):
+    """Smallest-l Hamming matches of one query: (dists (l,), ids (l,)),
+    through the fused scan (G = B = 1); ties to the lowest id, slots past
+    n carry (DIST_SENTINEL, -1).  codes: (n, W) int32; query: (W,)."""
+    d, i = hamming_topk_grouped(codes[None], query[None, None, :], l,
+                                block_n=block_n, select=select, pack=pack)
+    return d[0, 0], i[0, 0]
+
+
+def hamming_topk_batch(codes, queries, l: int, *, block_n: int = 4096,
+                       select: str | None = None, pack: str | None = None):
+    """Smallest-l matches for B queries over one code table (G = 1):
+    (dists (B, l), ids (B, l))."""
+    d, i = hamming_topk_grouped(codes[None], queries[None], l,
+                                block_n=block_n, select=select, pack=pack)
+    return d[0], i[0]
+
+
+def lbh_chain(p, q, r):
+    """(s*q, s*p) of the fused LBH chain; any m (no padding)."""
+    return _lbh.lbh_chain(_f32(p), _f32(q), _f32(r))
+
+
+def lbh_grad(x, u, v, r):
+    """Full eq.-18 gradient (-X^T(s*q), -X^T(s*p)) with the fused chain in
+    the middle; the two projections and the two X^T products are
+    strict-fp32 matmuls, as the JAX package leaves them to XLA."""
+    with strict_fp32():
+        p, q = x @ u, x @ v
+        sq, sp = lbh_chain(p, q, r)
+        return -(sq @ x), -(sp @ x)

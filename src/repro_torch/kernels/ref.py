@@ -1,17 +1,63 @@
-"""Plain oracles for the kernels, and the near-zero bound that decides
-whether two hash results may differ in a bit."""
+"""Plain oracles for the kernels, the near-zero bound that decides whether
+two hash results may differ in a bit, and the rounding bound of the LBH
+gradient chain."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.functions import bilinear_signs, seeded_projections
+from repro_torch.core.functions import (bilinear_signs, seeded_projections,
+                                        strict_fp32)
 from repro_torch.utils.bits import hamming_packed, pack_signs
+
+
+def bilinear_hash_ref(x, u, v):
+    """Packed codes pack(sgn((X U) .* (X V))): (n, ceil(k/32)) int32."""
+    return pack_signs(bilinear_signs(x, u, v))
 
 
 def bilinear_hash_seeded_ref(x, seed: int, k: int):
     """Seed-generated packed codes: materialise the factors, then hash."""
-    u, v = seeded_projections(seed, x.shape[1], k, x.device)
-    return pack_signs(bilinear_signs(x, u, v))
+    return bilinear_hash_ref(x, *seeded_projections(seed, x.shape[1], k,
+                                                    x.device))
+
+
+def lbh_chain_ref(p, q, r):
+    """(s*q, s*p) with b = tanh(pq/2), s = (R b)(1 - b^2)."""
+    b = torch.tanh(0.5 * p * q)
+    with strict_fp32():
+        rb = r @ b
+    s = rb * (1.0 - b * b)
+    return s * q, s * p
+
+
+def lbh_grad_ref(x, u, v, r):
+    """Full surrogate gradient (eq. 18): (-X^T(s*q), -X^T(s*p))."""
+    with strict_fp32():
+        p, q = x @ u, x @ v
+        sq, sp = lbh_chain_ref(p, q, r)
+        return -(sq @ x), -(sp @ x)
+
+
+def lbh_chain_bound(p, q, r):
+    """Per-element float32 rounding bounds of (s*q, s*p) between two
+    evaluations of the chain on the same p, q, r.
+
+    The m-term sum R b may run in any order: (m + 8)·2^-23·Σ_j |R_ij b_j|,
+    the 8 covering a few ulp of tanh difference in each b_j; 1 - b_i^2
+    then moves by at most 12·2^-23 absolute (through b_i), and each of the
+    two products adds 2^-23 of its result.
+    """
+    m = p.shape[0]
+    eps = 2.0 ** -23
+    b = torch.tanh(0.5 * p * q)
+    with strict_fp32():
+        a = r.abs() @ b.abs()
+        rb = (r @ b).abs()
+    err_s = eps * ((m + 8) * a * (1.0 - b * b) + 12 * rb
+                   + 2 * rb * (1.0 - b * b))
+    s = rb * (1.0 - b * b)
+    return (err_s * q.abs() + eps * (s * q).abs(),
+            err_s * p.abs() + eps * (s * p).abs())
 
 
 def hamming_distance_ref(codes, query):

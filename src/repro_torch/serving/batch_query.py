@@ -2,7 +2,8 @@
 
 1. hashing — all L tables' codes at once: seeded BH families through one
    grouped hash-kernel launch, other BH/LBH families through one stacked
-   strict-fp32 ``torch.matmul`` (the work the JAX package leaves to XLA);
+   strict-fp32 ``torch.matmul`` (the work the JAX package leaves to XLA),
+   AH/EH families one table at a time;
 2. candidate unions and padding for the probe path (host numpy);
 3. re-rank — one gather + batched reduce over the padded candidate matrix
    (core.search.margin_rerank_batch).
@@ -17,15 +18,9 @@ from repro_torch.core.functions import (BHHash, SeededBHHash, _sgn,
 from repro_torch.core.search import margin_rerank_batch
 from repro_torch.kernels import ops
 from repro_torch.utils.bits import flip_packed, pack_signs
+from repro_torch.utils.device import as_float_tensor
 
 PAD_MULTIPLE = 128  # candidate-matrix padding quantum (few distinct shapes)
-
-
-def as_float_tensor(a, device) -> torch.Tensor:
-    """numpy array or tensor -> contiguous float32 tensor on ``device``."""
-    if not torch.is_tensor(a):
-        a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-    return a.to(device=device, dtype=torch.float32).contiguous()
 
 
 def _stackable(families) -> bool:
@@ -56,10 +51,14 @@ def _database_codes(families, pts: torch.Tensor) -> torch.Tensor:
 
 def hash_queries_all(families, w) -> torch.Tensor:
     """Query-side codes for all tables: (L, B, W) int32 on the families'
-    device.  The query flip h(P_w) = -h(w) is the packed-bit complement of
-    the database-style code (sgn(0) = +1 pairs prod >= 0 with prod < 0)."""
+    device.  For bilinear families the query flip h(P_w) = -h(w) is the
+    packed-bit complement of the database-style code (sgn(0) = +1 pairs
+    prod >= 0 with prod < 0); AH flips only its v bits and EH negates its
+    scores, so other families hash their queries themselves."""
     w = as_float_tensor(w, families[0].device)
-    return flip_packed(_database_codes(families, w), families[0].k)
+    if _stackable(families):
+        return flip_packed(_database_codes(families, w), families[0].k)
+    return torch.stack([f.hash_query(w) for f in families])
 
 
 def hash_database_all(families, x) -> torch.Tensor:

@@ -8,11 +8,13 @@ while a stable-id remap keeps every outstanding id resolving.  Host state
 features and the stacked live codes live on the index's device for the
 hash, scan and re-rank.
 
-Table families: with ``method="bh"`` (seeded) table t hashes with
-``SeededBHHash`` from ``functions.table_seed(config.seed, t)``.  The JAX
-package derives its seeds from jax.random keys, which torch cannot
-reproduce; to serve a JAX-built index, carry its families and state
-across with ``repro_torch.interop``.  The row-sharded scan (``mesh=``) is
+Table families come from ``core.indexer.make_family``: table t derives
+its family from ``functions.table_seed(config.seed, t)`` (seeded BH; AH
+and EH drawn from a generator with that seed; LBH learned on the index's
+device, warm-started at the seeded BH factors).  The JAX package derives
+its families from jax.random keys, which torch cannot reproduce; to serve
+a JAX-built index, carry its families and state across with
+``repro_torch.interop``.  The row-sharded scan (``mesh=``) is
 not ported in this slice.
 """
 from __future__ import annotations
@@ -23,8 +25,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import functions as F
-from repro_torch.core.indexer import IndexConfig, QueryResult
+from repro_torch.core.indexer import IndexConfig, QueryResult, make_family
 from repro_torch.core.search import (DIST_SENTINEL, margin_batch,
                                      margin_rerank_batch)
 from repro_torch.core.tables import SingleHashTable, keys_of
@@ -85,28 +86,13 @@ class MultiTableIndex:
 
     # -- build ---------------------------------------------------------------
 
-    def _make_family(self, t: int, d: int):
-        cfg = self.config
-        if cfg.method != "bh":
-            raise NotImplementedError(
-                f"method {cfg.method!r}: its families are learned by the JAX "
-                f"package; pass them in (fit(x, families=...), see "
-                f"repro_torch.interop)")
-        if not cfg.seeded_projections:
-            raise NotImplementedError(
-                "method 'bh' with seeded_projections=False: its factors are "
-                "drawn by the JAX package; pass them in (fit(x, families=...),"
-                " see repro_torch.interop.families_from_numpy)")
-        return F.SeededBHHash.create(F.table_seed(cfg.seed, t), d, cfg.bits,
-                                     self.device)
-
     def fit(self, x, families=None) -> "MultiTableIndex":
         """Hash every row of x into the L tables and build them.  families:
         optional per-table hash families (default: from the config)."""
         t0 = time.perf_counter()
         x_dev = bq.as_float_tensor(x, self.device)
         if families is None:
-            families = [self._make_family(t, x_dev.shape[1])
+            families = [make_family(self.config, x_dev, t)
                         for t in range(self.num_tables)]
         codes_all = to_numpy_u32(bq.hash_database_all(families, x_dev))
         n = x_dev.shape[0]

@@ -1,6 +1,8 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and input conversion shared by the port's entry
+points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +16,10 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def as_float_tensor(a, device) -> torch.Tensor:
+    """numpy array or tensor -> contiguous float32 tensor on ``device``."""
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return a.to(device=device, dtype=torch.float32).contiguous()

@@ -6,9 +6,11 @@ import).  Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the scan is integer work and must match bit for bit; the hash
-may differ from its plain version only in bits whose projection lies
-within the float32 rounding bound of zero (kernels.ref.sign_flip_ratios).
+Tolerances: the scan is integer work and must match bit for bit; both
+hashes may differ from their plain versions only in bits whose projection
+lies within the float32 rounding bound of zero
+(kernels.ref.sign_flip_ratios); the LBH chain within its float32 rounding
+bound (kernels.ref.lbh_chain_bound).
 """
 import numpy as np
 import pytest
@@ -19,10 +21,14 @@ from repro_torch.core.functions import seeded_projections  # noqa: E402
 from repro_torch.core.indexer import IndexConfig  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.bilinear_hash import (  # noqa: E402
-    LIBRARY as HASH_LIB, bilinear_hash_seeded, bilinear_hash_seeded_plain)
+    FACTORS_LIBRARY, LIBRARY as HASH_LIB, bilinear_hash, bilinear_hash_plain,
+    bilinear_hash_seeded, bilinear_hash_seeded_plain)
 from repro_torch.kernels.hamming import (  # noqa: E402
     LIBRARY as SCAN_LIB, hamming_topk_hist, hamming_topk_hist_plain)
-from repro_torch.kernels.ref import sign_flip_ratios  # noqa: E402
+from repro_torch.kernels.lbh_grad import (  # noqa: E402
+    LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
+from repro_torch.kernels.ref import (lbh_chain_bound,  # noqa: E402
+                                     sign_flip_ratios)
 from repro_torch.serving.multi_table import MultiTableIndex  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -35,9 +41,12 @@ def cuda():
     return torch.device("cuda")
 
 
+LIBS = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB)
+
+
 def test_kernels_build_for_sm90a(cuda):
-    _build.build([HASH_LIB, SCAN_LIB])
-    for name in (HASH_LIB, SCAN_LIB):
+    _build.build(LIBS)
+    for name in LIBS:
         assert _build.library_path(name).exists()
         assert "sm_90a" in _build.build_log(name)
 
@@ -144,3 +153,84 @@ def test_service_on_cuda_matches_cpu(cuda, mode):
             assert r_c.index == r_g.index
             assert np.array_equal(np.sort(r_c.candidates),
                                   np.sort(r_g.candidates))
+
+
+@pytest.mark.parametrize("n,d,k", [
+    (1000, 385, 20), (777, 64, 48), (300, 2001, 64), (129, 3, 1),
+    (32, 385, 20), (5000, 100, 32),
+])
+def test_factor_hash_kernel_vs_plain(cuda, n, d, k):
+    rng = np.random.default_rng(n + d)
+    x, u, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda) for s in ((n, d), (d, k), (d, k)))
+    before = bilinear_hash.launches
+    got = bilinear_hash(x, u, v)
+    torch.cuda.synchronize()
+    assert bilinear_hash.launches == before + 1
+    want = bilinear_hash_plain(x, u, v)
+    assert got.shape == want.shape == (n, -(-k // 32))
+    if k % 32:
+        assert not (got[:, -1] >> (k % 32)).any()
+    ratios = sign_flip_ratios(x, [(u, v)], got[None], want[None])
+    assert (ratios <= 1.0).all(), ratios.max()
+
+
+@pytest.mark.parametrize("m", [1, 100, 777, 1000, 4096])
+def test_lbh_chain_kernel_vs_plain(cuda, m):
+    rng = np.random.default_rng(m)
+    p, q = (torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    r = torch.from_numpy(rng.normal(size=(m, m)).astype(np.float32)).to(cuda)
+    r = (r + r.T) / 2
+    before = lbh_chain.launches
+    got = lbh_chain(p, q, r)
+    torch.cuda.synchronize()
+    assert lbh_chain.launches == before + 1
+    for g, w, b in zip(got, lbh_chain_plain(p, q, r),
+                       lbh_chain_bound(p, q, r)):
+        assert ((g - w).abs() <= b).all()
+
+
+def test_nesterov_bit_makes_no_host_sync(cuda):
+    """The per-bit loop keeps the best-iterate choice on the device."""
+    from repro_torch.core import learning as TL
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(200, 40)).astype(np.float32)).to(
+        cuda)
+    r = torch.from_numpy(rng.normal(size=(200, 200)).astype(np.float32)).to(
+        cuda)
+    r = (r + r.T) / 2
+    u0, v0 = x[0].clone(), x[1].clone()
+    torch.cuda.synchronize()
+    before = lbh_chain.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, v, costs = TL._nesterov_bit(u0, v0, x, r, 10, 0.03 / 200)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lbh_chain.launches == before + 10
+    assert costs.shape == (10,) and torch.isfinite(costs).all()
+
+
+def test_hyperplane_index_fits_lbh_through_both_kernels(cuda):
+    """fit on the card: LBH learning launches the chain once per Nesterov
+    step, the database hash launches the factor kernel once; the learned
+    family hashes like the CPU plain version over the same factors."""
+    from repro_torch.core.indexer import HyperplaneIndex
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3000, 65)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cfg = IndexConfig(method="lbh", bits=20, lbh_sample=300, lbh_steps=12)
+    chain0, hash0 = lbh_chain.launches, bilinear_hash.launches
+    idx = HyperplaneIndex(cfg, device=cuda).fit(x)
+    torch.cuda.synchronize()
+    assert lbh_chain.launches - chain0 == 20 * 12
+    assert bilinear_hash.launches - hash0 == 1
+    xt = torch.from_numpy(x)
+    u, v = idx.family.u.cpu(), idx.family.v.cpu()
+    ratios = sign_flip_ratios(xt, [(u, v)], idx.codes.cpu()[None],
+                              bilinear_hash_plain(xt, u, v)[None])
+    assert (ratios <= 1.0).all()
+    w = rng.normal(size=65).astype(np.float32)
+    assert idx.query(w).nonempty
+    assert 0 <= idx.query_scan(w, 64)[0] < 3000

@@ -49,11 +49,27 @@ def test_families_from_numpy_every_kind():
     assert np.array_equal(fams[1].u.numpy(), np.asarray(bh.u))
     assert np.array_equal(fams[2].v.numpy(), np.asarray(bh.u))
     assert all(f.k == 20 and f.device.type == "cpu" for f in fams)
+    ah = JF.AHHash.create(key, 40, 20)
+    eh = JF.EHHash.create(key, 40, 6, sample_dims=9)
+    ah_t, eh_t, eh_full = interop.families_from_numpy([
+        {"kind": "ah", "u": np.asarray(ah.u), "v": np.asarray(ah.v)},
+        {"kind": "eh", "mats": np.asarray(eh.mats),
+         "dims": np.asarray(eh.dims)},
+        {"kind": "eh", "mats": np.asarray(eh.mats)[:, :4, :4],
+         "dims": None}], device="cpu")
+    assert type(ah_t) is TF.AHHash and ah_t.k == 20
+    assert np.array_equal(ah_t.v.numpy(), np.asarray(ah.v))
+    assert type(eh_t) is TF.EHHash and eh_t.k == 6
+    assert np.array_equal(eh_t.mats.numpy(), np.asarray(eh.mats))
+    assert np.array_equal(eh_t.dims.numpy(), np.asarray(eh.dims))
+    assert eh_full.dims is None and eh_full.mats.shape == (6, 4, 4)
 
 
 @pytest.mark.parametrize("spec,match", [
-    ({"kind": "ah", "u": np.zeros((3, 2)), "v": np.zeros((3, 2))}, "kind"),
+    ({"kind": "bogus", "u": np.zeros((3, 2)), "v": np.zeros((3, 2))},
+     "kind"),
     ({"kind": "bh", "u": np.zeros((3, 2)), "v": np.zeros((3, 4))}, "equal"),
+    ({"kind": "eh", "mats": np.zeros((2, 3, 4))}, r"\(k, d, d\)"),
 ])
 def test_families_from_numpy_rejects_bad_specs(spec, match):
     with pytest.raises(ValueError, match=match):

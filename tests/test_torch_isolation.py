@@ -59,20 +59,32 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     """A CPU tensor takes the plain version; any other device the kernel
     (a 'meta' tensor stands in for a device with no kernel here)."""
-    from repro_torch.kernels.bilinear_hash import bilinear_hash_seeded
+    from repro_torch.kernels.bilinear_hash import (bilinear_hash,
+                                                   bilinear_hash_seeded)
     from repro_torch.kernels.hamming import hamming_topk_hist
-    before = (bilinear_hash_seeded.launches, hamming_topk_hist.launches)
+    from repro_torch.kernels.lbh_grad import lbh_chain
+    kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
+               lbh_chain)
+    before = [k.launches for k in kernels]
     x = torch.zeros(5, 3)
+    u = torch.zeros(3, 20)
+    p, r = torch.zeros(5), torch.zeros(5, 5)
     assert bilinear_hash_seeded(x, [1], 20).shape == (1, 5, 1)
     codes = torch.zeros(1, 5, 1, dtype=torch.int32)
     assert hamming_topk_hist(codes, codes[:, :2], 3, 8)[0].shape == (
         1, 1, 2, 3)
-    assert (bilinear_hash_seeded.launches,
-            hamming_topk_hist.launches) == before
+    assert bilinear_hash(x, u, u).shape == (5, 1)
+    assert lbh_chain(p, p, r)[0].shape == (5,)
+    assert [k.launches for k in kernels] == before
+    meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
         bilinear_hash_seeded(x.to("meta"), [1], 20)
     with pytest.raises(ValueError, match="unsupported device"):
         hamming_topk_hist(codes.to("meta"), codes[:, :2].to("meta"), 3, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bilinear_hash(*meta(x, u, u))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lbh_chain(*meta(p, p, r))
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

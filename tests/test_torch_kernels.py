@@ -7,8 +7,13 @@ Tolerances, stated per check:
 - scan: every (distance, id) pair identical after the merge, ties to the
   lowest id, sentinels and every candidate pack included; the block-local
   layout before the merge is compared at equal block_n;
-- seeded hash: a bit may differ only where a projection lies within the
-  float32 rounding bound of zero (``kernels.ref.sign_flip_ratios`` <= 1);
+- seeded and materialised hash: a bit may differ only where a projection
+  lies within the float32 rounding bound of zero
+  (``kernels.ref.sign_flip_ratios`` <= 1);
+- LBH chain given the same p, q, R: within ``kernels.ref.lbh_chain_bound``
+  (the m-term sum R b in another order, a few ulp of tanh); the full
+  gradient, whose projections X u, X v are also summed in another order,
+  within 1e-5 of its largest |entry|;
 - margins: rtol 1e-5, plus the float32 rounding bound of the d-term dot
   product, (d + 8)·2^-23·Σ_j |x_j w_j| / ||w||, as an absolute term: torch
   and XLA sum over d in another order, and a small margin is the
@@ -25,7 +30,9 @@ from repro.kernels import hamming as jhamming  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import search as tsearch  # noqa: E402
 from repro_torch.core.functions import seeded_projections  # noqa: E402
+from repro_torch.kernels import bilinear_hash as tbh  # noqa: E402
 from repro_torch.kernels import hamming as thamming  # noqa: E402
+from repro_torch.kernels import lbh_grad as tlbh  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.utils.bits import (flip_packed, from_numpy_u32,  # noqa: E402
@@ -71,6 +78,74 @@ def test_sign_flip_ratios_flags_a_bit_far_from_zero():
     ratios = tref.sign_flip_ratios(x, [seeded_projections(5, 16, 20)],
                                    codes, bad)
     assert ratios.numel() == 1 and ratios.item() > 1.0
+
+
+# -- materialised-factor hash -----------------------------------------------
+
+@pytest.mark.parametrize("k", [20, 32, 64])
+def test_bilinear_hash_plain_vs_jax_within_near_zero_bound(k):
+    rng = np.random.default_rng(k)
+    n, d = 333, 97
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    u = rng.normal(size=(d, k)).astype(np.float32)
+    v = rng.normal(size=(d, k)).astype(np.float32)
+    want = from_numpy_u32(np.asarray(jops.bilinear_hash(
+        jnp.asarray(x), jnp.asarray(u), jnp.asarray(v))))
+    xt, ut, vt = (torch.from_numpy(a) for a in (x, u, v))
+    got = tbh.bilinear_hash_plain(xt, ut, vt)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (
+        n, -(-k // 32))
+    assert torch.equal(tops.bilinear_hash(xt, ut, vt), got)  # CPU route
+    if k % 32:
+        assert not (got[:, -1] >> (k % 32)).any()           # pad bits 0
+    ratios = tref.sign_flip_ratios(xt, [(ut, vt)], got[None], want[None])
+    assert (ratios <= 1.0).all(), ratios.max()
+
+
+# -- LBH gradient chain --------------------------------------------------------
+
+@pytest.mark.parametrize("m", [100, 512, 777])
+def test_lbh_chain_and_grad_vs_jax(m):
+    rng = np.random.default_rng(m)
+    d = 48
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    u = (0.3 * rng.normal(size=(d,))).astype(np.float32)
+    v = (0.3 * rng.normal(size=(d,))).astype(np.float32)
+    r = rng.normal(size=(m, m)).astype(np.float32)
+    r = (r + r.T) / 2
+    p, q = x @ u, x @ v
+    jsq, jsp = (np.asarray(a) for a in jops.lbh_chain(
+        jnp.asarray(p), jnp.asarray(q), jnp.asarray(r)))
+    pt, qt, rt = (torch.from_numpy(a) for a in (p, q, r))
+    tsq, tsp = tlbh.lbh_chain_plain(pt, qt, rt)
+    bq, bp = tref.lbh_chain_bound(pt, qt, rt)
+    assert (np.abs(tsq.numpy() - jsq) <= bq.numpy()).all()
+    assert (np.abs(tsp.numpy() - jsp) <= bp.numpy()).all()
+    for a, b in zip(tops.lbh_chain(pt, qt, rt), (tsq, tsp)):   # CPU route
+        assert torch.equal(a, b)
+    jgu, jgv = (np.asarray(a) for a in jops.lbh_grad(
+        jnp.asarray(x), jnp.asarray(u), jnp.asarray(v), jnp.asarray(r)))
+    tgu, tgv = tops.lbh_grad(torch.from_numpy(x), torch.from_numpy(u),
+                             torch.from_numpy(v), rt)
+    for got, want in ((tgu, jgu), (tgv, jgv)):
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    rgu, rgv = tref.lbh_grad_ref(torch.from_numpy(x), torch.from_numpy(u),
+                                 torch.from_numpy(v), rt)
+    assert torch.equal(rgu, tgu) and torch.equal(rgv, tgv)
+
+
+def test_lbh_chain_bound_flags_a_wrong_chain():
+    """The bound is tight enough to see a chain that forgets (1 - b^2)."""
+    rng = np.random.default_rng(0)
+    m = 100
+    p, q = (torch.from_numpy(rng.normal(size=m).astype(np.float32))
+            for _ in range(2))
+    r = torch.from_numpy(rng.normal(size=(m, m)).astype(np.float32))
+    r = (r + r.T) / 2
+    sq, _ = tlbh.lbh_chain_plain(p, q, r)
+    bq, _ = tref.lbh_chain_bound(p, q, r)
+    wrong = (r @ torch.tanh(0.5 * p * q)) * q
+    assert ((wrong - sq).abs() > bq).any()
 
 
 # -- fused scan --------------------------------------------------------------
@@ -149,6 +224,31 @@ def test_scan_saturated_and_zero_distances():
     qs = np.concatenate([codes[:, 10:12], flipped], axis=1)  # d = 0 and k
     d, _ = _scan_vs_jax(codes, qs, 30, block_n=256)
     assert (d[:, :2, 0] == 0).all()
+
+
+@pytest.mark.parametrize("n,l", [(700, 40), (50, 80)])     # l > n too
+def test_single_table_topk_vs_jax(n, l):
+    """hamming_topk{,_batch} of search (plain) and ops (the scan kernel's
+    route, G = 1) against JAX's: identical (distance, id) pairs."""
+    rng = np.random.default_rng(n)
+    codes = rng.integers(0, 2**32, (n, 2), dtype=np.uint32)
+    codes[:, 0] &= np.uint32(0xFF)                         # ties
+    qs = rng.integers(0, 2**32, (5, 2), dtype=np.uint32)
+    cj, qj = jnp.asarray(codes), jnp.asarray(qs)
+    ct, qt = from_numpy_u32(codes), from_numpy_u32(qs)
+    want_b = [np.asarray(a) for a in jsearch.hamming_topk_batch(cj, qj, l)]
+    want_1 = [np.asarray(a) for a in jsearch.hamming_topk(cj, qj[0], l)]
+    for a, b in zip(want_b, jops.hamming_topk_batch(cj, qj, l,
+                                                    block_n=256)):
+        assert np.array_equal(a, np.asarray(b))
+    for got in (tsearch.hamming_topk_batch(ct, qt, l),
+                tops.hamming_topk_batch(ct, qt, l, block_n=256)):
+        for a, b in zip(got, want_b):
+            assert a.dtype == torch.int32 and np.array_equal(a.numpy(), b)
+    for got in (tsearch.hamming_topk(ct, qt[0], l),
+                tops.hamming_topk(ct, qt[0], l, block_n=256)):
+        for a, b in zip(got, want_1):
+            assert np.array_equal(a.numpy(), b)
 
 
 @pytest.mark.parametrize("kind", ["partial", "sparse", "all_dead"])
@@ -271,6 +371,24 @@ def test_margin_rerank_and_margin_batch_vs_jax():
     assert np.isinf(want_mb[~valid]).all()
     assert np.all(np.abs(tmb.numpy()[valid] - want_mb[valid])
                   <= (1e-5 * np.abs(want_mb) + bound)[valid])
+
+
+@pytest.mark.parametrize("l", [1, 7, 60])
+def test_margin_rerank_single_query_vs_jax(l):
+    rng = np.random.default_rng(l)
+    n, d, c = 300, 41, 50
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.normal(size=(d,)).astype(np.float32)
+    cand = rng.integers(0, n, c)
+    cand[5] = cand[9]                  # a repeated id ties with itself
+    jm, ji = (np.asarray(a) for a in jsearch.margin_rerank(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(cand), l))
+    tm, ti = tsearch.margin_rerank(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(cand), l)
+    assert ti.shape == tm.shape == (min(l, c),)
+    assert np.array_equal(ti.numpy(), ji)
+    bound = _margin_bound(x, w[None], ji[None])[0]
+    assert np.all(np.abs(tm.numpy() - jm) <= 1e-5 * np.abs(jm) + bound)
 
 
 def test_margin_batch_rows_do_not_depend_on_the_batch():

@@ -286,14 +286,21 @@ def test_empty_index_and_pre_fit_errors(corpus, queries):
         TService(idx, mode="scan", mesh=object())
 
 
-@pytest.mark.parametrize("overrides", [
-    dict(method="lbh"),
-    dict(method="bh", seeded_projections=False),
+@pytest.mark.parametrize("overrides,raises", [
+    (dict(method="lbh"), False),
+    (dict(method="bh", seeded_projections=False), True),
 ], ids=["lbh", "bh-unseeded"])
-def test_unported_families_raise_at_fit(corpus, overrides):
-    """Families the JAX package draws or learns are carried in, never
-    invented by the port: building them from the config raises."""
+def test_unported_families_raise_at_fit(corpus, overrides, raises):
+    """Families only the JAX package can draw (unseeded BH factors) are
+    carried in, never invented by the port: building them from the config
+    raises.  LBH is learned on the port and fits."""
+    from repro_torch.core.functions import LBHHash
     from repro_torch.serving.multi_table import MultiTableIndex
-    idx = MultiTableIndex(TConfig(**{**CFG, **overrides}), device="cpu")
-    with pytest.raises(NotImplementedError, match="interop"):
+    idx = MultiTableIndex(TConfig(**{**CFG, **overrides, "lbh_sample": 40,
+                                     "lbh_steps": 5}), device="cpu")
+    if raises:
+        with pytest.raises(NotImplementedError, match="interop"):
+            idx.fit(corpus.x[:50])
+    else:
         idx.fit(corpus.x[:50])
+        assert all(type(f) is LBHHash for f in idx.families)
