@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--batches 16]
 
-Run from the repository root.  It builds the port's four CUDA kernels from
+Run from the repository root.  It builds the port's five CUDA kernels from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version at the shapes its path gives it, then drives two paths at full
+version at the shapes its path gives it, then drives three paths at full
 size on the Tiny-1M geometry (1,060,000 x 385 float32 features, 10
 classes, from ``--seed``):
 
@@ -13,6 +13,14 @@ classes, from ``--seed``):
   card and ``HashQueryService(mode="scan", scan_l=128)`` answering
   micro-batches of 32 hyperplane normals, checked against the plain scan
   and an exhaustive scan;
+- streaming ingest: ``LSMMultiTableIndex`` of the same configuration
+  (``lsm_delta_threshold=0.02``) fitted on the 1,000,000 unlabelled rows
+  behind ``AsyncHashQueryService(mode="scan", scan_l=128)``, with the
+  background compactor, taking the 60,000 labelled rows in 30 insert
+  batches and 50,000 deletes while query micro-batches keep flowing;
+  checked after every batch that crossed a compaction and at the end
+  against a fresh ``MultiTableIndex`` over the same live rows, then
+  repeated with ``fused_select="argmin"`` (the masked-argmin kernel);
 - the paper's method: ``HyperplaneIndex`` with LBH learned on the card
   (bits 20, 1000-point sample, 150 Nesterov steps per bit) answering 32
   SVM normals through its table and its scan, then 10 iterations of SVM
@@ -41,6 +49,11 @@ ROOT = Path(__file__).resolve().parent
 
 N_LABELED, N_UNLABELED, D_GIST = 60_000, 1_000_000, 384
 BITS, TABLES, BATCH, SCAN_L = 20, 4, 32, 128
+# the streaming path: 30 insert batches of 2,000 labelled rows, 40,000
+# deletes of base rows and 10,000 of inserted rows, at least 4 query
+# micro-batches per insert batch
+STREAM_BATCHES, STREAM_QUERIES = 30, 4
+BASE_DELETES, NEW_DELETES = 40_000, 10_000
 LBH_SAMPLE, LBH_STEPS, RADIUS, LBH_SCAN_L = 1000, 150, 4, 256
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
 # cores; popcount issues 16 results per clock per SM (CUDA programming
@@ -130,7 +143,8 @@ def main() -> int:
         bilinear_hash_plain, bilinear_hash_seeded,
         bilinear_hash_seeded_plain)
     from repro_torch.kernels.hamming import (
-        LIBRARY as SCAN_LIB, cand_encoding, hamming_topk_hist,
+        FUSED_LIBRARY, LIBRARY as SCAN_LIB, cand_encoding,
+        hamming_topk_fused, hamming_topk_fused_plain, hamming_topk_hist,
         hamming_topk_hist_plain)
     from repro_torch.kernels.lbh_grad import (
         LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
@@ -139,6 +153,8 @@ def main() -> int:
                                         run_active_learning)
     from repro_torch.svm.linear_svm import train_ova
     from repro_torch.serving import batch_query as bq
+    from repro_torch.serving.async_service import AsyncHashQueryService
+    from repro_torch.serving.lsm import LSMMultiTableIndex
     from repro_torch.serving.multi_table import MultiTableIndex
     from repro_torch.serving.service import HashQueryService
     from repro_torch.utils.bits import (flip_packed, from_numpy_u32,
@@ -167,7 +183,7 @@ def main() -> int:
     # -- 2. build -----------------------------------------------------------
     phase("2 build")
     t0 = time.perf_counter()
-    libs = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB)
+    libs = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY)
     _build.build(libs)
     print(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
@@ -249,72 +265,126 @@ def main() -> int:
         plain_ms=hash_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None)
 
-    # -- 4. scan kernel vs plain at the query shape -------------------------
-    phase("4 scan kernel vs plain")
+    # -- 4. scan kernels vs plain at the query shape ------------------------
+    phase("4 scan kernels vs plain")
     q = flip_packed(bilinear_hash_seeded(w0, seeds, BITS), BITS)
     bn = ops._block_rows(n, 4096)
     l_k = min(SCAN_L, bn)
+    scans = {"hist": (hamming_topk_hist, hamming_topk_hist_plain),
+             "argmin": (hamming_topk_fused, hamming_topk_fused_plain)}
+    scan_err = {"hist": 0, "argmin": 0}   # largest |kernel - plain| seen
 
-    scan_err = 0   # largest |kernel - plain| over every output compared
-
-    def scan_case(label, codes, queries, l, active=None, packs=("16",)):
-        nonlocal scan_err
+    def scan_case(label, codes, queries, l, active=None,
+                  packs=("none", "16", "8"), selects=("hist", "argmin")):
+        """Each select's kernel against its plain version before the merge,
+        and the merged top-l against the plain scan (and, for argmin, the
+        hist kernel's merged output), bit for bit."""
         nb = ops._block_rows(codes.shape[1], 4096)
         lk = min(l, nb)
         act_i = None if active is None else active.to(torch.int32)
         want = search.hamming_topk_grouped(codes, queries, l, active=active)
         for pack in packs:
-            kd, ki = hamming_topk_hist(codes, queries, lk, nb, act_i, pack)
-            pd, pi = hamming_topk_hist_plain(codes, queries, lk, nb, act_i,
-                                             pack)
-            got = ops.hamming_topk_grouped(codes, queries, l, pack=pack,
-                                           active=active)
-            for a, b in ((kd, pd), (ki, pi), (got[0], want[0]),
-                         (got[1], want[1])):
-                scan_err = max(scan_err,
-                               int((a.long() - b.long()).abs().max()))
-            check(torch.equal(kd, pd) and torch.equal(ki, pi),
-                  f"{label} pack {pack}: block output equals the plain one")
-            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
-                                                               want[1]),
-                  f"{label} pack {pack}: merged top-l equals the plain scan")
-            print(f"scan {label} pack {pack}: identical "
-                  f"(G={codes.shape[0]} n={codes.shape[1]} "
+            hist = ops.hamming_topk_grouped(codes, queries, l, pack=pack,
+                                            active=active, select="hist")
+            for select in selects:
+                kern, plain = scans[select]
+                kd, ki = kern(codes, queries, lk, nb, act_i, pack)
+                pd, pi = plain(codes, queries, lk, nb, act_i, pack)
+                got = (hist if select == "hist" else ops.hamming_topk_grouped(
+                    codes, queries, l, pack=pack, active=active,
+                    select=select))
+                for a, b in ((kd, pd), (ki, pi), (got[0], want[0]),
+                             (got[1], want[1])):
+                    err = int((a.long() - b.long()).abs().max())
+                    scan_err[select] = max(scan_err[select], err)
+                check(torch.equal(kd, pd) and torch.equal(ki, pi),
+                      f"{label} {select} pack {pack}: block output equals the "
+                      f"plain one")
+                check(all(torch.equal(a, b) for a, b in zip(got, want))
+                      and all(torch.equal(a, b) for a, b in zip(got, hist)),
+                      f"{label} {select} pack {pack}: merged top-l equals the "
+                      f"plain scan and the hist kernel's")
+            print(f"scan {label} pack {pack}: {' and '.join(selects)} "
+                  f"identical (G={codes.shape[0]} n={codes.shape[1]} "
                   f"W={codes.shape[2]} B={queries.shape[1]} l={l})")
 
-    scan_case("main", codes_k, q, SCAN_L, packs=("none", "16", "8"))
+    scan_case("main", codes_k, q, SCAN_L, selects=("hist",))
     dead = torch.from_numpy(rng.random(n) < 0.1).to(dev)
-    scan_case("10% tombstoned", codes_k, q, SCAN_L, active=~dead)
+    scan_case("10% tombstoned", codes_k, q, SCAN_L, active=~dead,
+              packs=("16",), selects=("hist",))
+    # the streaming path's shapes: a base of ~1M rows with ~5% tombstones,
+    # deltas of 4,096 and 20,000 rows
+    live5 = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+    scan_case("base, 5% tombstoned", codes_k, q, SCAN_L, active=live5)
+    for rows in (4096, 20_000):
+        scan_case(f"delta of {rows} rows", codes_k[:, -rows:].contiguous(),
+                  q, SCAN_L, active=live5[-rows:])
     scan_case("l > n", codes_k[:, :100].contiguous(), q, SCAN_L)
     codes48 = bilinear_hash_seeded(x[:200_000], seeds, 48)
     q48 = flip_packed(bilinear_hash_seeded(w0, seeds, 48), 48)
-    scan_case("W=2 (k=48)", codes48, q48, SCAN_L, packs=("16", "8"))
-    scan_ms = cuda_ms(torch, lambda: hamming_topk_hist(codes_k, q, l_k, bn,
-                                                       None, "16"), 20)
-    scan_plain_ms = cuda_ms(torch, lambda: hamming_topk_hist_plain(
-        codes_k, q, l_k, bn, None, "16"), 3)
+    scan_case("W=2 (k=48)", codes48, q48, SCAN_L)
+    block_dead = torch.ones(3 * 4096, dtype=torch.bool, device=dev)
+    block_dead[4096:8192] = False
+    scan_case("an all-dead block", codes_k[:, :3 * 4096].contiguous(), q,
+              SCAN_L, active=block_dead)
+    popc_s = POPC_PER_CLK_SM * sms * max_clock_mhz * 1e6
     grid = -(-n // bn)
     d_dtype, i_dtype, _ = cand_encoding("16", w_words, bn)
     cand_bytes = TABLES * grid * BATCH * l_k * (
         torch.empty(0, dtype=d_dtype).element_size()
         + torch.empty(0, dtype=i_dtype).element_size())
-    scan_bytes = TABLES * (n + BATCH) * w_words * 4 + cand_bytes
-    scan_popc = TABLES * n * BATCH * w_words
-    popc_s = POPC_PER_CLK_SM * sms * max_clock_mhz * 1e6
+
+    def scan_bound(live_rows, active_bytes):
+        """(bound ms, bound_by): codes, active and queries read once,
+        candidates written once; one popcount per live row, query and
+        word, 16 per clock per SM."""
+        t_bytes = (TABLES * (n + BATCH) * w_words * 4 + active_bytes
+                   + cand_bytes) / HBM_BYTES_S
+        t_ops = TABLES * live_rows * BATCH * w_words / popc_s
+        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                           else "bytes")
+
+    scan_ms = cuda_ms(torch, lambda: hamming_topk_hist(codes_k, q, l_k, bn,
+                                                       None, "16"), 20)
+    scan_plain_ms = cuda_ms(torch, lambda: hamming_topk_hist_plain(
+        codes_k, q, l_k, bn, None, "16"), 3)
+    scan_bound_ms, scan_bound_by = scan_bound(n, 0)
     records["hamming_topk_hist"] = dict(
         name="hamming_topk_hist", route="cuda",
         source="src/repro_torch/kernels/csrc/hamming_topk_hist.cu",
         replaces="src/repro/kernels/hamming.py:429",
-        max_abs_err=scan_err, ms=scan_ms, plain_ms=scan_plain_ms,
-        bound_ms=1e3 * max(scan_bytes / HBM_BYTES_S, scan_popc / popc_s),
-        bound_by=("operations" if scan_popc / popc_s
-                  > scan_bytes / HBM_BYTES_S else "bytes"),
-        library_ms=None)
-    del codes_p, codes48
+        max_abs_err=scan_err["hist"], ms=scan_ms, plain_ms=scan_plain_ms,
+        bound_ms=scan_bound_ms, bound_by=scan_bound_by, library_ms=None)
+    # kernel 5 at the streaming base's shape: ~1M rows, 5% tombstoned
+    act5 = live5.to(torch.int32)
+    fused_ms = cuda_ms(torch, lambda: hamming_topk_fused(
+        codes_k, q, l_k, bn, act5, "16"), 20)
+    fused_plain_ms = cuda_ms(torch, lambda: hamming_topk_fused_plain(
+        codes_k, q, l_k, bn, act5, "16"), 3)
+    hist5_ms = cuda_ms(torch, lambda: hamming_topk_hist(
+        codes_k, q, l_k, bn, act5, "16"), 20)
+    _, prof = device_profile(torch, lambda: [hamming_topk_fused(
+        codes_k, q, l_k, bn, act5, "16") for _ in range(5)])
+    fused_dev_ms = kernel_device_ms(prof, "topk_fused_kernel")
+    fused_bound_ms, fused_bound_by = scan_bound(int(live5.sum()), 4 * n)
+    print(f"argmin kernel at the base shape (G={TABLES}, n={n}, 5% "
+          f"tombstoned, B={BATCH}, l={l_k}, pack 16): CUDA events "
+          f"{fused_ms} ms, device time (torch.profiler) {fused_dev_ms} ms; "
+          f"plain {fused_plain_ms} ms; bound {fused_bound_ms} ms "
+          f"({fused_bound_by}); the hist kernel on the same inputs "
+          f"{hist5_ms} ms")
+    records["hamming_topk_fused"] = dict(
+        name="hamming_topk_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/hamming_topk_fused.cu",
+        replaces="src/repro/kernels/hamming.py:207",
+        max_abs_err=scan_err["argmin"], ms=fused_ms,
+        plain_ms=fused_plain_ms, bound_ms=fused_bound_ms,
+        bound_by=fused_bound_by, library_ms=None)
+    del codes_p, codes48, act5
     torch.cuda.synchronize()
 
     all_kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
-                   lbh_chain)
+                   lbh_chain, hamming_topk_fused)
 
     def zero_counts():
         for kern in all_kernels:
@@ -421,8 +491,250 @@ def main() -> int:
     del index, service, codes_dev, codes_scan, m_min, i_min
     torch.cuda.empty_cache()
 
-    # -- 6. factor hash kernel vs plain at the fit and query shapes --------
-    phase("6 factor hash kernel vs plain")
+    # -- 6. streaming path: the LSM index behind the async front end -------
+    phase("6 streaming path")
+    lab = corpus.y >= 0
+    x_base, x_new = x_np[~lab], x_np[lab]
+    per = x_new.shape[0] // STREAM_BATCHES
+    scfg = IndexConfig(method="bh", bits=BITS, tables=TABLES, batch=BATCH,
+                       lsm_delta_threshold=0.02)
+    srng = np.random.default_rng(args.seed + 2)
+    base_del = np.array_split(
+        srng.choice(x_base.shape[0], BASE_DELETES, replace=False),
+        STREAM_BATCHES)
+    new_del = [a.size for a in np.array_split(np.arange(NEW_DELETES),
+                                              STREAM_BATCHES)]
+    wq = ws[:BATCH]        # the check set: one micro-batch of normals
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    excluded = dict.fromkeys(read_counts(), 0)   # launches of the checks
+    lsm = LSMMultiTableIndex(scfg, device="cuda").fit(x_base)
+    print(f"LSM fit over {x_base.shape[0]} rows: {lsm.fit_s:.2f} s")
+    svc = AsyncHashQueryService(lsm, mode="scan", scan_l=SCAN_L,
+                                deadline_ms=2.0)
+    q_lat, swap_lat, compaction_lat = [], [], []
+    ins_s = [0.0]
+    nq = [0]
+
+    def query_batch(wb):
+        """One micro-batch of normals through the async front end: its
+        results; records its latency, and whether a swap fell inside."""
+        c0, active0 = lsm.compactions, lsm.segments()["compaction_active"]
+        t = time.perf_counter()
+        futs = [svc.submit(w) for w in wb]
+        res = [f.result(timeout=300) for f in futs]
+        lat = time.perf_counter() - t
+        q_lat.append(lat)
+        nq[0] += 1
+        if lsm.compactions != c0:
+            swap_lat.append(lat)
+        if active0 or lsm.compactions != c0:
+            compaction_lat.append(lat)
+        return res
+
+    def same(res, ids, margins):
+        return (np.array_equal([r.index for r in res], ids)
+                and np.array_equal(np.float32([r.margin for r in res]),
+                                   margins))
+
+    def verify(label, mid=None):
+        """The LSM index against a fresh MultiTableIndex over its live rows
+        (same families): per-table lists and answers identical; the async
+        answers (and any taken mid-compaction) identical to the sync
+        query_scan_batch on the same state.  Returns the sync results."""
+        c0 = read_counts()
+        live = lsm.active.copy()
+        live_ids = lsm.ids_np[live]
+        fresh = MultiTableIndex(scfg, device="cuda").fit(
+            lsm.x_np[live], families=lsm.families)
+        dl, il = lsm.scan_table_topk(wq, l=SCAN_L)
+        df, i_f = fresh.scan_table_topk(wq, l=SCAN_L)
+        check(np.array_equal(dl, df) and np.array_equal(
+            il, np.where(i_f >= 0, live_ids[np.clip(i_f, 0, None)], -1)),
+            f"{label}: per-table lists equal a fresh monolithic index's")
+        rl = lsm.query_scan_batch(wq, l=SCAN_L)
+        rf = fresh.query_scan_batch(wq, l=SCAN_L)
+        check(np.array_equal(rl.ids, np.where(
+            rf.ids >= 0, live_ids[np.clip(rf.ids, 0, None)], -1))
+            and np.array_equal(rl.margins, rf.margins),
+            f"{label}: answers equal a fresh monolithic index's")
+        check(same([f.result(timeout=300) for f in
+                    [svc.submit(w) for w in wq]], rl.ids, rl.margins),
+              f"{label}: async answers equal the sync ones")
+        if mid is not None:
+            check(same(mid, rl.ids, rl.margins),
+                  f"{label}: answers taken mid-compaction equal them too")
+        st = lsm.segments()
+        print(f"{label}: identical to a fresh index over {live.sum()} live "
+              f"rows (base {st['base_rows']}, delta {st['delta_rows']}, "
+              f"compactions {lsm.compactions}"
+              f"{', one checked mid-compaction' if mid is not None else ''})")
+        del fresh
+        torch.cuda.empty_cache()
+        for k, v in read_counts().items():
+            excluded[k] += v - c0[k]
+        return dl, il, rl
+
+    # The stream: each insert batch, its deletes, then >= 4 query
+    # micro-batches; while a fold is due or running, inserts wait and query
+    # micro-batches keep flowing until the new base swaps in.
+    lsm.start_compactor()
+    t_stream = time.perf_counter()
+    try:
+        seen = 0
+        for i in range(STREAM_BATCHES):
+            t = time.perf_counter()
+            ids = svc.submit_insert(x_new[i * per:(i + 1) * per]).result(
+                timeout=300)
+            ins_s[0] += time.perf_counter() - t
+            svc.submit_delete(base_del[i]).result(timeout=300)
+            svc.submit_delete(srng.choice(ids, new_del[i], replace=False)
+                              ).result(timeout=300)
+            for j in range(STREAM_QUERIES):
+                k = (nq[0] % args.batches) * BATCH
+                query_batch(ws[k:k + BATCH])
+            mid = None
+            while True:
+                st = lsm.segments()
+                due = st["delta_rows"] >= max(
+                    scfg.lsm_delta_min,
+                    int(scfg.lsm_delta_threshold * st["base_rows"]))
+                if not (st["compaction_active"] or due):
+                    break
+                res = query_batch(wq)
+                if mid is None and st["compaction_active"]:
+                    mid = res
+            if lsm.compactions != seen:
+                seen = lsm.compactions
+                verify(f"after insert batch {i + 1}", mid)
+    finally:
+        lsm.stop_compactor()
+    stream_s = time.perf_counter() - t_stream
+    dl, il, rl = verify("end of stream")
+    torch.cuda.synchronize()
+    stream_launches = {k: v - excluded[k] for k, v in read_counts().items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lat = np.asarray(q_lat)
+    stream_stats = {
+        "inserted_rows_per_s": x_new.shape[0] / ins_s[0],
+        "insert_batches": STREAM_BATCHES,
+        "deleted_rows": BASE_DELETES + NEW_DELETES,
+        "query_batches": nq[0], "queries": nq[0] * BATCH,
+        "qps": nq[0] * BATCH / float(lat.sum()),
+        "p50_ms": 1e3 * float(np.quantile(lat, 0.5)),
+        "p95_ms": 1e3 * float(np.quantile(lat, 0.95)),
+        "max_ms": 1e3 * float(lat.max()),
+        "max_ms_across_a_swap": 1e3 * max(swap_lat, default=float("nan")),
+        "max_ms_while_compacting": 1e3 * max(compaction_lat,
+                                             default=float("nan")),
+        "compactions": lsm.compactions, "stream_s": stream_s,
+        "peak_device_gib": peak_gib}
+    print("streaming path: " + json.dumps(stream_stats))
+    print(f"launches on the streaming path (checks excluded): "
+          f"{stream_launches}")
+    print("async stats: " + json.dumps(
+        {k: v for k, v in svc.stats().items() if k != "backend"}))
+    print("index stats: " + json.dumps(
+        {k: v for k, v in lsm.stats().items() if k != "per_table"}))
+    check(lsm.compactions >= 2, "at least 2 compactions swapped in")
+    check(stream_launches["bilinear_hash_seeded"] > 0
+          and stream_launches["hamming_topk_hist"] > 0,
+          "the hash and the hist scan launched on the streaming path")
+    check(lsm.segments()["delta_rows"] >= scfg.lsm_delta_fused_rows,
+          "the final delta is past lsm_delta_fused_rows (kernel route)")
+
+    # the final query set again with the masked-argmin select: identical
+    # lists and answers, kernel 5 on both segments of both calls
+    zero_counts()
+    scfg.fused_select = "argmin"
+    flushes0 = svc.stats()["backend"]["batches"]
+    da, ia = lsm.scan_table_topk(wq, l=SCAN_L)
+    ra = lsm.query_scan_batch(wq, l=SCAN_L)
+    ra_async = [f.result(timeout=300) for f in [svc.submit(w) for w in wq]]
+    torch.cuda.synchronize()
+    argmin_launches = read_counts()
+    scan_calls = 2 + svc.stats()["backend"]["batches"] - flushes0
+    scfg.fused_select = None
+    check(np.array_equal(da, dl) and np.array_equal(ia, il),
+          "argmin lists equal the hist ones")
+    check(np.array_equal(ra.ids, rl.ids)
+          and np.array_equal(ra.margins, rl.margins)
+          and same(ra_async, rl.ids, rl.margins),
+          "argmin answers (sync and async) equal the hist ones")
+    check(argmin_launches["hamming_topk_fused"] == 2 * scan_calls
+          and argmin_launches["hamming_topk_hist"] == 0,
+          "the argmin kernel scanned both segments in every scan call")
+    print(f"argmin repeat: lists and answers identical to hist; launches "
+          f"{argmin_launches}")
+
+    # -- 7. where the streaming path's time goes (outside the counted path)
+    phase("7 streaming stages")
+
+    def host_ms(fn, reps):
+        """Mean host ms of fn, each call ended by a synchronise."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    def delta_upload():
+        with lsm._lock:
+            lsm._delta_key = None
+            lsm._delta_state()
+
+    def async_batches():
+        for f in [svc.submit(w) for w in ws[:8 * BATCH]]:
+            f.result(timeout=300)
+
+    batches_ms = host_ms(async_batches, 3) / 8
+    busy_ms, _ = device_profile(torch, async_batches)
+    stages = {
+        "async_query_batch_ms": batches_ms,
+        "async_query_batch_device_busy_ms": busy_ms / 8,
+        "device_idle_share": 1 - busy_ms / 8 / batches_ms,
+        "insert_hash_ms": cuda_ms(torch, lambda: bq.hash_database_all(
+            lsm.families, x_new[:per]), 10),
+        "delta_upload_ms": host_ms(delta_upload, 10),
+        "two_segment_scan_and_merge_ms": host_ms(
+            lambda: lsm._scan_segments(wq, SCAN_L), 10),
+        "query_scan_batch_ms": host_ms(
+            lambda: lsm.query_scan_batch(wq, l=SCAN_L), 10),
+    }
+    # one more fold of the final state, its phases timed apart: the copy
+    # steps (each under the lock), the upload (off the lock), the swap
+    check(lsm.begin_compaction(), "a fold of the final state begins")
+    c = lsm._c
+    steps = []
+    while c.pos < c.src_len:
+        t = time.perf_counter()
+        lsm.compaction_step()
+        steps.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    dev_codes, dev_x = lsm._upload_new_base(c)
+    torch.cuda.synchronize()
+    stages["compaction_upload_ms"] = 1e3 * (time.perf_counter() - t)
+    with lsm._lock:
+        t = time.perf_counter()
+        lsm._finish_swap(c, dev_codes, dev_x)
+        stages["swap_pause_ms"] = 1e3 * (time.perf_counter() - t)
+    stages.update({
+        "compaction_copy_steps": len(steps),
+        "compaction_copy_ms": 1e3 * sum(steps),
+        "compaction_copy_step_max_ms": 1e3 * max(steps)})
+    rs = lsm.query_scan_batch(wq, l=SCAN_L)
+    check(np.array_equal(rs.ids, rl.ids)
+          and np.array_equal(rs.margins, rl.margins),
+          "answers unchanged across the timed fold")
+    print("streaming stages: " + json.dumps(stages))
+    svc.close()
+    del lsm, svc, dev_codes, dev_x, c
+    torch.cuda.empty_cache()
+
+    # -- 8. factor hash kernel vs plain at the fit and query shapes --------
+    phase("8 factor hash kernel vs plain")
     u0, v0 = seeded_projections(table_seed(0, 0), d, BITS, dev)
     codes_f = bilinear_hash(x, u0, v0)
     torch.cuda.synchronize()
@@ -451,7 +763,8 @@ def main() -> int:
         return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                            else "bytes")
 
-    _, prof = device_profile(torch, lambda: bilinear_hash(x, u0, v0))
+    _, prof = device_profile(torch, lambda: [bilinear_hash(x, u0, v0)
+                                             for _ in range(5)])
     fh_dev_ms = kernel_device_ms(prof, "bilinear_hash_kernel")
     print(f"factor hash at the fit shape, device time of the kernel "
           f"(torch.profiler): {fh_dev_ms} ms")
@@ -471,8 +784,8 @@ def main() -> int:
         plain_ms=fh_plain_ms, bound_ms=fh_bound, bound_by=fh_bound_by,
         library_ms=None)
 
-    # -- 7. LBH chain kernel vs plain at the learner's shapes --------------
-    phase("7 LBH chain kernel vs plain")
+    # -- 9. LBH chain kernel vs plain at the learner's shapes --------------
+    phase("9 LBH chain kernel vs plain")
     rows_m = learning.sample_rows(n, LBH_SAMPLE, table_seed(0, 0)).to(dev)
     x_m = x[rows_m]
     s_t1, s_t2 = learning.auto_thresholds(x_m, x_m)
@@ -532,8 +845,8 @@ def main() -> int:
         library_ms=None)
     del r_full, p_full, q_full
 
-    # -- 8. LBH path: learned single-table index ---------------------------
-    phase("8 LBH path: HyperplaneIndex")
+    # -- 10. LBH path: learned single-table index ---------------------------
+    phase("10 LBH path: HyperplaneIndex")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     lcfg = IndexConfig(method="lbh", bits=BITS, radius=RADIUS,
@@ -603,8 +916,8 @@ def main() -> int:
           f"sample: LBH {err_lbh}, BH warm start {err_bh}")
     check(err_lbh < err_bh, "LBH fits the Gram matrix better than BH")
 
-    # -- 9. LBH path: active learning ----------------------------------------
-    phase("9 LBH path: active learning")
+    # -- 11. LBH path: active learning ----------------------------------------
+    phase("11 LBH path: active learning")
     al_cfg = ALConfig(iterations=10, init_per_class=5, svm_steps=20,
                       eval_every=5)
     selector = make_selector("lbh", bits=BITS, radius=RADIUS,
@@ -636,8 +949,8 @@ def main() -> int:
           and lbh_launches["hamming_topk_hist"] > 0,
           "the factor hash and the scan launched on the LBH path")
 
-    # -- 10. where the LBH fit's time goes (outside the counted path) ----
-    phase("10 LBH fit stages")
+    # -- 12. where the LBH fit's time goes (outside the counted path) ----
+    phase("12 LBH fit stages")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     learning.auto_thresholds(x_m, x)
@@ -670,12 +983,14 @@ def main() -> int:
           f"{1 - busy_ms / wall_ms if busy_ms else 'not measured'}), "
           f"chain kernel {chain_dev} ms per launch")
 
-    # -- 11. times ----------------------------------------------------------
-    phase("11 times")
+    # -- 13. times ----------------------------------------------------------
+    phase("13 times")
     kernels = []
     for name, rec in records.items():
-        path = serve_launches if name in (
-            "bilinear_hash_seeded", "hamming_topk_hist") else lbh_launches
+        path = (serve_launches if name in ("bilinear_hash_seeded",
+                                           "hamming_topk_hist")
+                else argmin_launches if name == "hamming_topk_fused"
+                else lbh_launches)
         rec["launches"] = path[name]
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -28,8 +28,8 @@ class IndexConfig:
 
     The JAX package's ``use_kernels`` has no counterpart here: the device
     of the tensors chooses, so CUDA tensors launch the hand-written kernels
-    and CPU tensors take their plain PyTorch versions.  The LSM and refresh
-    knobs come with the slices that port their readers.
+    and CPU tensors take their plain PyTorch versions.  The refresh knobs
+    come with the slice that ports their reader (ROADMAP, queue 1 item 8.3).
     """
 
     method: str = "lbh"            # ah | eh | bh | lbh
@@ -45,6 +45,20 @@ class IndexConfig:
     batch: int = 32                # micro-batch size for the query service
     # auto-compact once this fraction of rows is tombstoned (None = never)
     compact_threshold: float | None = 0.5
+    # LSM delta index (serving.lsm.LSMMultiTableIndex): an immutable
+    # device-resident base plus a small mutable delta, folded back
+    # incrementally
+    lsm_step_rows: int = 4096          # source rows folded per compaction
+                                       # step (the bounded-pause unit)
+    lsm_delta_threshold: float = 0.5   # begin folding once the delta
+                                       # exceeds this fraction of the base…
+    lsm_delta_min: int = 1024          # …and at least this many rows
+    lsm_delta_fused_rows: int = 4096   # delta scans stay plain PyTorch
+                                       # below this many rows; past it they
+                                       # launch the scan kernel like the base
+    lsm_auto: bool = True              # piggyback compaction begin/step on
+                                       # insert/delete/query calls (False =
+                                       # only compact()/start_compactor())
     # fused-scan selection: "hist" or "argmin"; None honours
     # REPRO_FUSED_SELECT (default hist).  Bit-identical either way.
     fused_select: str | None = None

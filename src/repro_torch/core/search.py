@@ -1,9 +1,10 @@
 """Device-side Hamming search and exact-margin re-rank, single device.
 
 Plain PyTorch: these functions run on whatever device their tensors live
-on and launch no hand-written kernel (the fused scan kernel is reached
+on and launch no hand-written kernel (the fused scan kernels are reached
 through ``repro_torch.kernels.ops``).  The sharded scan of the JAX package
-(``shard_map``, ``mesh=``) is not ported in this slice.
+(``shard_map``, ``mesh=``) and its helpers ``drop_tombstones_topk`` and
+``merge_topk_shards`` are not ported yet (ROADMAP, queue 1 item 9).
 
 Tie contract shared with the JAX package: top-l by (distance, id)
 ascending, ties to the lowest id, impossible slots (l > n, masked rows)
@@ -171,10 +172,35 @@ def hamming_topk_grouped_hist(codes, queries, l: int, active=None):
     return _pad_topk(out_d, out_i, l)
 
 
+def merge_topk_segments(d_a, i_a, d_b, i_b, l: int):
+    """Lexicographic (distance, id) merge of two per-(group, query) top-k
+    lists, each sorted that way with (DIST_SENTINEL, -1) in impossible
+    slots and ids in one id space (the caller offsets segment-local ids
+    first).  Returns the combined top-l: what one scan over the
+    concatenated segments gives, since real distances never reach
+    DIST_SENTINEL."""
+    d = torch.cat([d_a, d_b], dim=-1)
+    i = torch.cat([i_a, i_b], dim=-1)
+    return _pad_topk(*lex_smallest(d, i, l), l)
+
+
+def _segmented_rows(base_x, delta_x, split: int, rows):
+    """x[rows] over a row space stored as two segments: rows < split from
+    base_x, rows >= split from delta_x at row - split.  Both may carry
+    padding rows; out-of-range rows are clamped (their slots are invalid)."""
+    cb = base_x[torch.clamp(rows, 0, base_x.shape[0] - 1)]
+    cd = delta_x[torch.clamp(rows - split, 0, delta_x.shape[0] - 1)]
+    return torch.where((rows < split)[..., None], cb, cd)
+
+
 def _margins(x, w_batch, rows):
     """|w.x| / ||w|| for the gathered rows: multiply + reduce over d (not a
     matmul), so a row's margin does not depend on the batch around it."""
-    cx = x[rows]                                          # (B, C, d)
+    return _row_margins(x[rows], w_batch)
+
+
+def _row_margins(cx, w_batch):
+    """|w.x| / ||w|| of gathered rows cx (B, C, d) against w_batch (B, d)."""
     m = torch.abs(torch.sum(cx * w_batch[:, None, :], dim=-1))
     return m / torch.clamp(torch.linalg.vector_norm(w_batch, dim=1,
                                                     keepdim=True), min=1e-12)
@@ -203,6 +229,29 @@ def margin_rerank_batch(x, w_batch, candidates, valid, l: int):
     m, sel = torch.sort(m, dim=1, stable=True)
     sel = sel[:, :min(l, candidates.shape[1])]
     return m[:, :sel.shape[1]], torch.gather(candidates, 1, sel)
+
+
+def margin_rerank_segmented(base_x, delta_x, split: int, w_batch,
+                            candidates, valid, l: int):
+    """``margin_rerank_batch`` over the LSM index's two-segment row space
+    (``_segmented_rows``): equal to it on the concatenation
+    [base_x[:split]; delta_x[:rows - split]], since the gathered rows and
+    the margin expression are the same."""
+    m = torch.where(valid, _row_margins(
+        _segmented_rows(base_x, delta_x, split, candidates), w_batch),
+        torch.inf)
+    m, sel = torch.sort(m, dim=1, stable=True)
+    sel = sel[:, :min(l, candidates.shape[1])]
+    return m[:, :sel.shape[1]], torch.gather(candidates, 1, sel)
+
+
+def margin_batch_segmented(base_x, delta_x, split: int, w_batch, candidates,
+                           valid):
+    """``margin_batch`` over the two-segment row space: (B, C) float32,
+    +inf at invalid slots."""
+    return torch.where(valid, _row_margins(
+        _segmented_rows(base_x, delta_x, split, candidates), w_batch),
+        torch.inf)
 
 
 def margin_batch(x, w_batch, candidates, valid):

@@ -62,14 +62,18 @@ def families_from_numpy(specs, device="cuda") -> list:
 
 
 def index_from_numpy(config: IndexConfig, families, x, codes, active, ids_np,
-                     next_id: int, device="cuda") -> MultiTableIndex:
-    """A fitted port ``MultiTableIndex`` holding a JAX index's state.
+                     next_id: int, device="cuda",
+                     cls=MultiTableIndex) -> MultiTableIndex:
+    """A fitted port index holding a JAX index's state.
 
     families: specs as in ``families_from_numpy``; x: (rows, d) features;
     codes: L per-table (rows, W) uint32 codes; active: (rows,) tombstone
     mask; ids_np: (rows,) row -> stable id; next_id: the id high-water mark.
+    cls: the index class to build, ``MultiTableIndex`` or
+    ``serving.lsm.LSMMultiTableIndex`` (which takes the rows as its base
+    segment).
     """
-    index = MultiTableIndex(config, tables=len(codes), device=device)
+    index = cls(config, tables=len(codes), device=device)
     return index.restore(families_from_numpy(families, index.device), x,
                          codes, active, ids_np, next_id)
 

@@ -1,13 +1,21 @@
-"""Fused Hamming scan + histogram top-l select: the CUDA kernel's wrapper,
-its launch count and its plain PyTorch version.
+"""Fused Hamming scans with block-local top-l selection: the CUDA kernels'
+wrappers, their launch counts and their plain PyTorch versions.
 
-For each (group, row block) and each of the group's B queries: the exact
-block-local smallest-t set of (distance, row) pairs, t = min(l, live rows
-in the block), ties to the lowest row, in row order; slots past t carry
-(pack sentinel, block_n - 1).  The kernel (csrc/hamming_topk_hist.cu)
-replaces the TPU kernel ``hamming_topk_hist_kernel`` with dma=False
-(src/repro/kernels/hamming.py:429); the merge that turns block-local
-candidates into the global top-l lives in ``kernels.ops``.
+For each (group, row block) and each of the group's B queries, both
+kernels emit the exact block-local smallest-t set of (distance, row)
+pairs, t = min(l, live rows in the block), ties to the lowest row:
+
+- ``hamming_topk_hist`` (csrc/hamming_topk_hist.cu) selects by a distance
+  histogram and emits in row order, slots past t carrying (pack sentinel,
+  block_n - 1); it replaces the TPU kernel ``hamming_topk_hist_kernel``
+  with dma=False (src/repro/kernels/hamming.py:429);
+- ``hamming_topk_fused`` (csrc/hamming_topk_fused.cu) selects by l rounds
+  of masked argmin and emits in (distance, row) order, slots past t
+  carrying (pack sentinel, 0); it replaces ``hamming_topk_fused_kernel``
+  (src/repro/kernels/hamming.py:207).
+
+The merge that turns block-local candidates into the global top-l lives in
+``kernels.ops`` and is the same for both.
 """
 from __future__ import annotations
 
@@ -26,11 +34,13 @@ _CAND_ID_MAX = 0x7FFF
 _PACK_CODE = {"none": 0, "16": 1, "8": 2}
 
 LIBRARY = "hamming_topk_hist"
-_SIGNATURES = {
-    "topk_hist_fits": (ctypes.c_int, [ctypes.c_int] * 2),
-    "topk_hist_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
-                         + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
-}
+FUSED_LIBRARY = "hamming_topk_fused"
+
+
+def _signatures(prefix: str) -> dict:
+    return {f"{prefix}_fits": (ctypes.c_int, [ctypes.c_int] * 2),
+            f"{prefix}_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                 + [ctypes.c_int] * 9 + [ctypes.c_void_p])}
 
 
 def cand_encoding(pack: str, w: int, block_n: int):
@@ -58,27 +68,37 @@ def cand_encoding(pack: str, w: int, block_n: int):
     return (torch.int16 if pack == "16" else torch.uint8), torch.int16, sent
 
 
+def _block_distances(codes, queries, block_n: int, active=None):
+    """(dist (G, grid, B, block_n) int32, live (grid, block_n) bool): every
+    block's distance tile, rows past n or with active == 0 at
+    DIST_SENTINEL."""
+    g, n, w = codes.shape
+    b = queries.shape[1]
+    grid = -(-n // block_n)
+    n_pad = grid * block_n
+    codes_p = torch.nn.functional.pad(codes, (0, 0, 0, n_pad - n))
+    live = torch.arange(n_pad, device=codes.device) < n
+    if active is not None:
+        live &= torch.nn.functional.pad(active.to(torch.int32),
+                                        (0, n_pad - n)) > 0
+    live = live.view(grid, block_n)
+    dist = hamming_packed(codes_p.view(g, grid, 1, block_n, w),
+                          queries.view(g, 1, b, 1, w))
+    return torch.where(live[None, :, None, :], dist, DIST_SENTINEL), live
+
+
 def hamming_topk_hist_plain(codes, queries, l_k: int, block_n: int,
                             active=None, pack: str = "none"):
     """Plain version of the kernel, all blocks at once: the per-block
     distance tile, bisection of its CDF to the cutoff r, the tie-rank
     cumsum, then each kept row's slot.  Same arguments and outputs as
     ``hamming_topk_hist``."""
-    g, n, w = codes.shape
+    g, _, w = codes.shape
     b = queries.shape[1]
     d_dtype, i_dtype, d_sent = cand_encoding(pack, w, block_n)
     dev = codes.device
-    grid = -(-n // block_n)
-    n_pad = grid * block_n
-    codes_p = torch.nn.functional.pad(codes, (0, 0, 0, n_pad - n))
-    live = torch.arange(n_pad, device=dev) < n
-    if active is not None:
-        live &= torch.nn.functional.pad(active.to(torch.int32),
-                                        (0, n_pad - n)) > 0
-    live = live.view(grid, block_n)
-    dist = hamming_packed(codes_p.view(g, grid, 1, block_n, w),
-                          queries.view(g, 1, b, 1, w))    # (g, grid, b, bn)
-    dist = torch.where(live[None, :, None, :], dist, DIST_SENTINEL)
+    dist, live = _block_distances(codes, queries, block_n, active)
+    grid = live.shape[0]
     t = live.sum(dim=1).clamp(max=l_k).view(1, grid, 1, 1)
     max_dist = 32 * w
     lo = torch.zeros((g, grid, b, 1), dtype=torch.int32, device=dev)
@@ -107,12 +127,13 @@ def hamming_topk_hist_plain(codes, queries, l_k: int, block_n: int,
 
 def hamming_topk_hist(codes, queries, l_k: int, block_n: int, active=None,
                       pack: str = "16"):
-    """Block-local fused scan + select over G stacked code groups.
+    """Block-local fused scan + histogram select over G stacked code groups.
 
     codes: (G, n, W) int32 (uint32 bits); queries: (G, B, W) int32; active:
     optional (n,) int32 liveness shared by all groups (0 = dead row);
     1 <= l_k <= block_n.  Returns (dists, ids), each (G, ceil(n/block_n),
-    B, l_k) in the pack's dtypes (``cand_encoding``), ids block-local.
+    B, l_k) in the pack's dtypes (``cand_encoding``), ids block-local, kept
+    rows in row order.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``hamming_topk_hist.launches``) or raises.
@@ -120,6 +141,58 @@ def hamming_topk_hist(codes, queries, l_k: int, block_n: int, active=None,
     if codes.device.type == "cpu":
         return hamming_topk_hist_plain(codes, queries, l_k, block_n, active,
                                        pack)
+    out = _launch_scan(LIBRARY, "topk_hist", codes, queries, l_k, block_n,
+                       active, pack)
+    hamming_topk_hist.launches += 1
+    return out
+
+
+hamming_topk_hist.launches = 0
+
+
+def hamming_topk_fused_plain(codes, queries, l_k: int, block_n: int,
+                             active=None, pack: str = "none"):
+    """Plain version of the masked-argmin kernel, all blocks at once: a
+    stable sort of each block's distance tile (ties to the lowest row),
+    cut to l_k; slots past the live rows carry (pack sentinel, 0), as the
+    TPU kernel's argmin over an all-sentinel tile gives.  Same arguments
+    and outputs as ``hamming_topk_fused``."""
+    w = codes.shape[2]
+    d_dtype, i_dtype, d_sent = cand_encoding(pack, w, block_n)
+    dist, _ = _block_distances(codes, queries, block_n, active)
+    d, rows = torch.sort(dist, dim=-1, stable=True)
+    d, rows = d[..., :l_k], rows[..., :l_k]
+    rows = torch.where(d >= DIST_SENTINEL, 0, rows)
+    return torch.clamp(d, max=d_sent).to(d_dtype), rows.to(i_dtype)
+
+
+def hamming_topk_fused(codes, queries, l_k: int, block_n: int, active=None,
+                       pack: str = "16"):
+    """Block-local fused scan + l_k rounds of masked argmin over G stacked
+    code groups.  Same arguments and output shapes as
+    ``hamming_topk_hist``; the kept rows come in (distance, row) order and
+    the slots past the live rows carry (pack sentinel, 0).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``hamming_topk_fused.launches``) or raises.
+    """
+    if codes.device.type == "cpu":
+        return hamming_topk_fused_plain(codes, queries, l_k, block_n, active,
+                                        pack)
+    out = _launch_scan(FUSED_LIBRARY, "topk_fused", codes, queries, l_k,
+                       block_n, active, pack)
+    hamming_topk_fused.launches += 1
+    return out
+
+
+hamming_topk_fused.launches = 0
+
+
+def _launch_scan(library: str, prefix: str, codes, queries, l_k: int,
+                 block_n: int, active, pack: str):
+    """Check the inputs of a block-local scan kernel, allocate its outputs
+    and launch ``<prefix>_launch`` from ``csrc/<library>.cu``; raises on
+    anything the kernel does not take and on a failed launch."""
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     g, n, w = codes.shape
@@ -142,22 +215,17 @@ def hamming_topk_hist(codes, queries, l_k: int, block_n: int, active=None,
     out_i = torch.empty((g, grid, b, l_k), dtype=i_dtype, device=codes.device)
     if out_d.numel() == 0:
         return out_d, out_i
-    lib = _build.load(LIBRARY, _SIGNATURES)
-    if not lib.topk_hist_fits(w, block_n):
+    lib = _build.load(library, _signatures(prefix))
+    if not getattr(lib, f"{prefix}_fits")(w, block_n):
         raise ValueError(f"W = {w} at block_n = {block_n} needs more shared "
                          f"memory than one block may use")
     with torch.cuda.device(codes.device):
-        err = lib.topk_hist_launch(
+        err = getattr(lib, f"{prefix}_launch")(
             codes.data_ptr(), queries.data_ptr(),
             None if active is None else active.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), g, n, w, b, l_k, block_n,
             grid, _PACK_CODE[pack], d_sent,
             torch.cuda.current_stream(codes.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"hamming_topk_hist launch failed: CUDA error "
-                           f"{err}")
-    hamming_topk_hist.launches += 1
+        raise RuntimeError(f"{library} launch failed: CUDA error {err}")
     return out_d, out_i
-
-
-hamming_topk_hist.launches = 0

@@ -8,13 +8,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.functions import strict_fp32
-from repro_torch.core.search import (DIST_SENTINEL, _grouped_topk_lax,
-                                     _pad_topk, env_cand_pack,
-                                     env_fused_select, lex_smallest)
+from repro_torch.core.search import (DIST_SENTINEL, _pad_topk,
+                                     env_cand_pack, env_fused_select,
+                                     lex_smallest)
 from repro_torch.kernels import bilinear_hash as _bh
 from repro_torch.kernels import lbh_grad as _lbh
 from repro_torch.kernels.bilinear_hash import bilinear_hash_seeded
-from repro_torch.kernels.hamming import cand_encoding, hamming_topk_hist
+from repro_torch.kernels.hamming import (cand_encoding, hamming_topk_fused,
+                                         hamming_topk_hist)
 
 SUBLANE = 8   # row-block sizes are multiples of 8, as in the JAX package
 
@@ -66,27 +67,21 @@ def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
     (DIST_SENTINEL, -1).  active: optional (n,) bool liveness shared by all
     groups.  pack: the kernel's candidate emission width (``"16"``,
     ``"8"``, ``"none"``; None reads REPRO_CAND_PACK); every pack is
+    bit-identical after the merge.  select: ``"hist"`` (histogram select,
+    ``hamming_topk_hist``) or ``"argmin"`` (l rounds of masked argmin,
+    ``hamming_topk_fused``); None reads REPRO_FUSED_SELECT.  Both are
     bit-identical after the merge.
-
-    select="argmin" (the JAX package's l-round masked-argmin kernel) is not
-    ported yet: CUDA tensors raise, CPU tensors take the plain stable-sort
-    selection, which the argmin kernel matches bit for bit.
     """
-    select = env_fused_select(select)
+    scan = (hamming_topk_fused if env_fused_select(select) == "argmin"
+            else hamming_topk_hist)
     pack = env_cand_pack(pack)
-    if select == "argmin":
-        if codes.device.type != "cpu":
-            raise NotImplementedError(
-                "select='argmin' needs hamming_topk_fused_kernel, which is "
-                "not ported yet (ROADMAP, queue 2); use select='hist'")
-        return _grouped_topk_lax(codes, queries, l, active)
     g, n, w = codes.shape
     b = queries.shape[1]
     bn = _block_rows(n, block_n)
     l_k = min(l, bn)    # a block holds bn rows; l_k = bn already emits all
     act = None if active is None else active.to(torch.int32).contiguous()
-    cd, ci = hamming_topk_hist(codes.contiguous(), queries.contiguous(), l_k,
-                               bn, act, pack)
+    cd, ci = scan(codes.contiguous(), queries.contiguous(), l_k, bn, act,
+                  pack)
     grid_n = cd.shape[1]
     # widen: the pack sentinel maps back to DIST_SENTINEL (real distances
     # sit strictly below it — cand_encoding guards) and block-local ids get

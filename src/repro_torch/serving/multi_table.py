@@ -15,7 +15,8 @@ device, warm-started at the seeded BH factors).  The JAX package derives
 its families from jax.random keys, which torch cannot reproduce; to serve
 a JAX-built index, carry its families and state across with
 ``repro_torch.interop``.  The row-sharded scan (``mesh=``) is
-not ported in this slice.
+not ported yet.  ``serving.lsm.LSMMultiTableIndex`` overrides the build,
+mutation, lookup, re-rank and scan methods here for streaming ingest.
 """
 from __future__ import annotations
 
@@ -99,10 +100,16 @@ class MultiTableIndex:
         x_host = x if isinstance(x, np.ndarray) else x_dev.cpu().numpy()
         self.restore(families, x_host, list(codes_all),
                      np.ones(n, dtype=bool), np.arange(n, dtype=np.int64), n)
-        self._x_dev = x_dev
-        self.device_uploads += 1
+        self._keep_fit_features(x_dev)
         self.fit_s = time.perf_counter() - t0
         return self
+
+    def _keep_fit_features(self, x_dev: torch.Tensor) -> None:
+        """Keep the features fit() put on the device: the monolithic
+        re-rank gathers from them (the LSM index keeps its own padded
+        segments instead)."""
+        self._x_dev = x_dev
+        self.device_uploads += 1
 
     def restore(self, families, x, codes, active, ids_np,
                 next_id: int) -> "MultiTableIndex":

@@ -15,11 +15,16 @@ Two interchangeable backends (``mode``):
   (``MultiTableIndex.query_scan_batch``): one hash launch and one scan
   launch for all L tables and the whole micro-batch, no candidate cache.
 
+With ``serving.lsm.LSMMultiTableIndex`` underneath, writes and compaction
+run under live traffic: every answer takes the index's lock
+(``_index_lock``) across the steps that must see one row space.
+
 The JAX package's online refresh (``refresh``, ``RefreshManager``) and the
 row-sharded scan (``mesh=``) come with later slices of the port.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 
@@ -29,6 +34,9 @@ from repro_torch.core.indexer import QueryResult
 from repro_torch.serving import batch_query as bq
 from repro_torch.serving.multi_table import _NO_MESH, MultiTableIndex
 from repro_torch.utils.bits import to_numpy_u32
+
+_NO_REFRESH = ("online refresh (RefreshManager) is not ported yet "
+               "(ROADMAP, queue 1 item 8.3)")
 
 
 class HashQueryService:
@@ -65,12 +73,20 @@ class HashQueryService:
         self.deletes = 0
         self.deleted_rows = 0
 
+    def _index_lock(self):
+        """The index's lock when it has one (the LSM index's compactor swaps
+        its row storage under live traffic, so a probe answer must see one
+        row space across lookup, re-rank and id translation); a no-op for
+        the monolithic MultiTableIndex."""
+        return getattr(self.index, "_lock", None) or contextlib.nullcontext()
+
     # -- writes --------------------------------------------------------------
 
     def insert(self, x_new) -> np.ndarray:
         """Forward a streaming insert; returns the assigned stable ids.  The
         candidate cache self-invalidates on the version bump."""
-        ids = self.index.insert(x_new)
+        with self._index_lock():
+            ids = self.index.insert(x_new)
         self.inserts += 1
         self.inserted_rows += int(ids.size)
         return ids
@@ -78,9 +94,14 @@ class HashQueryService:
     def delete(self, ids) -> None:
         """Forward a streaming delete (tombstone) to the index."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
-        self.index.delete(ids)
+        with self._index_lock():
+            self.index.delete(ids)
         self.deletes += 1
         self.deleted_rows += int(ids.size)
+
+    def refresh(self, wait: bool = True, warm_batches: tuple = ()) -> bool:
+        """The JAX package's online re-learn and generation swap."""
+        raise NotImplementedError(_NO_REFRESH)
 
     # -- micro-batching ------------------------------------------------------
 
@@ -146,32 +167,36 @@ class HashQueryService:
         t_start = time.perf_counter()
         b = ws.shape[0]
         use_cache = mask is None and self.cache_size > 0
-        qcodes = to_numpy_u32(bq.hash_queries_all(self.index.families, ws))
-        keys = [qcodes[:, i, :].tobytes() for i in range(b)]
-        cands: list[np.ndarray | None] = [None] * b
-        miss_rows = []
-        for i, key in enumerate(keys):
-            hit = self._cache_get(key) if use_cache else None
-            if hit is None:
-                miss_rows.append(i)
-            else:
-                cands[i] = hit
-                self.cache_hits += 1
-        lookup_s = 0.0
-        if miss_rows:
-            found, _, lookup_s = self.index.lookup_batch(
-                ws[miss_rows], qcodes=qcodes[:, miss_rows, :])
-            for i, cand in zip(miss_rows, found):
-                cands[i] = cand
-                if use_cache:
-                    self._cache_put(keys[i], cand)
+        # cached candidate lists are row space: a compaction swap between
+        # the probe and the id translation would misattribute them
+        with self._index_lock():
+            qcodes = to_numpy_u32(bq.hash_queries_all(self.index.families,
+                                                      ws))
+            keys = [qcodes[:, i, :].tobytes() for i in range(b)]
+            cands: list[np.ndarray | None] = [None] * b
+            miss_rows = []
+            for i, key in enumerate(keys):
+                hit = self._cache_get(key) if use_cache else None
+                if hit is None:
+                    miss_rows.append(i)
+                else:
+                    cands[i] = hit
+                    self.cache_hits += 1
+            lookup_s = 0.0
+            if miss_rows:
+                found, _, lookup_s = self.index.lookup_batch(
+                    ws[miss_rows], qcodes=qcodes[:, miss_rows, :])
+                for i, cand in zip(miss_rows, found):
+                    cands[i] = cand
+                    if use_cache:
+                        self._cache_put(keys[i], cand)
 
-        t0 = time.perf_counter()
-        ids, margins, nonempty = self.index.rerank_rows(
-            ws, cands, 1, self.index.mask_to_rows(mask))
-        ids = self.index.rows_to_ids(ids)
-        cands = [self.index.rows_to_ids(c) for c in cands]
-        rerank_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ids, margins, nonempty = self.index.rerank_rows(
+                ws, cands, 1, self.index.mask_to_rows(mask))
+            ids = self.index.rows_to_ids(ids)
+            cands = [self.index.rows_to_ids(c) for c in cands]
+            rerank_s = time.perf_counter() - t0
         self._record(b, time.perf_counter() - t_start, lookup_s, rerank_s)
         return [QueryResult(int(ids[i, 0]), float(margins[i, 0]), cands[i],
                             bool(nonempty[i]), lookup_s / b, rerank_s / b)
@@ -214,4 +239,6 @@ class HashQueryService:
             "index_scan_state_rebuilds": self.index.scan_state_rebuilds,
             "index_compaction_steps": self.index.compaction_steps,
             "index_compactions": self.index.compactions,
+            # the LSM index's small per-mutation uploads (0 otherwise)
+            "index_delta_uploads": getattr(self.index, "delta_uploads", 0),
         }

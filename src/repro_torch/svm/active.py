@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.functions import strict_fp32
 from repro_torch.core.indexer import IndexConfig
 from repro_torch.data.synthetic import Corpus
+from repro_torch.serving.async_service import AsyncHashQueryService
 from repro_torch.serving.multi_table import MultiTableIndex
 from repro_torch.serving.service import HashQueryService
 from repro_torch.svm.linear_svm import average_precision, train_ova
@@ -115,30 +116,43 @@ class HashSelector:
 
     All C per-iteration hyperplane queries go through the service as one
     micro-batch; an empty (post-mask) lookup falls back to random selection
-    exactly as the paper prescribes (§5.2).  The JAX package's
-    ``use_async`` (one future per learner through AsyncHashQueryService) is
-    not ported yet.
+    exactly as the paper prescribes (§5.2).
+
+    With ``use_async`` each learner submits its own query to an
+    AsyncHashQueryService (a future per class: the paper's C concurrent
+    learners) and the deadline-flush loop coalesces them into shared
+    launches; ``flush()`` after the burst bounds the last learner's wait.
+    The picks equal the synchronous selector's.
     """
 
     def __init__(self, index_config: IndexConfig, seed: int = 0,
-                 use_async: bool = False, device="cuda"):
-        if use_async:
-            raise NotImplementedError(
-                "use_async needs AsyncHashQueryService, which is not ported "
-                "yet (ROADMAP, queue 1 item 8.2)")
+                 use_async: bool = False, deadline_ms: float = 2.0,
+                 device="cuda"):
         self.config = index_config
         self.name = index_config.method
         self.rng = np.random.default_rng(seed)
+        self.use_async = use_async
+        self.deadline_ms = deadline_ms
         self.device = resolve_device(device)
         self.index: MultiTableIndex | None = None
-        self.service: HashQueryService | None = None
+        self.service: HashQueryService | AsyncHashQueryService | None = None
 
     def prepare(self, corpus: Corpus):
         self.index = MultiTableIndex(self.config, device=self.device).fit(
             corpus.x)
-        self.service = HashQueryService(self.index,
-                                        max_batch=self.config.batch)
+        if self.use_async:
+            self.service = AsyncHashQueryService(
+                self.index, max_batch=self.config.batch,
+                deadline_ms=self.deadline_ms)
+        else:
+            self.service = HashQueryService(self.index,
+                                            max_batch=self.config.batch)
         return self
+
+    def finish(self) -> None:
+        """Release the flush thread (async mode); sync mode is a no-op."""
+        if isinstance(self.service, AsyncHashQueryService):
+            self.service.close()
 
     def select(self, c: int, w, unlabeled: np.ndarray):
         picks, oks = self.select_batch(
@@ -146,8 +160,17 @@ class HashSelector:
         return picks[0], oks[0]
 
     def select_batch(self, w_all: np.ndarray, unlabeled: np.ndarray):
+        if isinstance(self.service, AsyncHashQueryService):
+            # one independent learner per class, each submitting its own
+            # query; the service coalesces the burst into shared launches
+            futures = [self.service.submit(w_all[c], mask=unlabeled)
+                       for c in range(w_all.shape[0])]
+            self.service.flush()
+            results = [f.result() for f in futures]
+        else:
+            results = self.service.query_batch(w_all, mask=unlabeled)
         picks, oks = [], []
-        for res in self.service.query_batch(w_all, mask=unlabeled):
+        for res in results:
             if res.nonempty:
                 picks.append(res.index)
                 oks.append(True)
@@ -158,7 +181,8 @@ class HashSelector:
 
 
 def make_selector(method: str, *, bits: int, radius: int, seed: int = 0,
-                  use_async: bool = False, device="cuda", **index_kw):
+                  use_async: bool = False, deadline_ms: float = 2.0,
+                  device="cuda", **index_kw):
     if method == "random":
         return RandomSelector(seed)
     if method == "exhaustive":
@@ -167,7 +191,8 @@ def make_selector(method: str, *, bits: int, radius: int, seed: int = 0,
     eff_bits = 2 * bits if method == "ah" else bits
     cfg = IndexConfig(method=method, bits=eff_bits, radius=radius, seed=seed,
                       **index_kw)
-    return HashSelector(cfg, seed, use_async=use_async, device=device)
+    return HashSelector(cfg, seed, use_async=use_async,
+                        deadline_ms=deadline_ms, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -221,31 +246,35 @@ def run_active_learning(corpus: Corpus, selector, config: ALConfig,
         eval_iters.append(it)
         map_curve.append(float(average_precision(s, pos).mean()))
 
-    record_eval(0)
-    for it in range(1, config.iterations + 1):
-        w_np = w_all.cpu().numpy()
-        nw = np.maximum(np.linalg.norm(w_np, axis=1), 1e-12)
-        unlabeled = ~labeled
+    try:
+        record_eval(0)
+        for it in range(1, config.iterations + 1):
+            w_np = w_all.cpu().numpy()
+            nw = np.maximum(np.linalg.norm(w_np, axis=1), 1e-12)
+            unlabeled = ~labeled
 
-        t0 = time.perf_counter()
-        # all C hyperplane queries answered as one micro-batch
-        picks, oks = selector.select_batch(w_np, unlabeled)
-        nonempty += np.asarray(oks, dtype=np.int64)
-        select_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # all C hyperplane queries answered as one micro-batch
+            picks, oks = selector.select_batch(w_np, unlabeled)
+            nonempty += np.asarray(oks, dtype=np.int64)
+            select_s += time.perf_counter() - t0
 
-        # metrics: achieved vs optimal margin this round
-        opt = exhaustive.select_all(w_all, unlabeled)
-        sel_m = [abs(float(x_np[i] @ w_np[c])) / nw[c]
-                 for c, i in enumerate(picks)]
-        opt_m = [abs(float(x_np[i] @ w_np[c])) / nw[c]
-                 for c, i in enumerate(opt)]
-        min_margins.append(float(np.mean(sel_m)))
-        exh_margins.append(float(np.mean(opt_m)))
+            # metrics: achieved vs optimal margin this round
+            opt = exhaustive.select_all(w_all, unlabeled)
+            sel_m = [abs(float(x_np[i] @ w_np[c])) / nw[c]
+                     for c, i in enumerate(picks)]
+            opt_m = [abs(float(x_np[i] @ w_np[c])) / nw[c]
+                     for c, i in enumerate(opt)]
+            min_margins.append(float(np.mean(sel_m)))
+            exh_margins.append(float(np.mean(opt_m)))
 
-        labeled[np.asarray(picks)] = True
-        w_all = retrain(w_all, config.svm_steps)
-        if it % config.eval_every == 0 or it == config.iterations:
-            record_eval(it)
+            labeled[np.asarray(picks)] = True
+            w_all = retrain(w_all, config.svm_steps)
+            if it % config.eval_every == 0 or it == config.iterations:
+                record_eval(it)
+    finally:
+        if hasattr(selector, "finish"):
+            selector.finish()       # async selectors release their thread
 
     return ALResult(
         name=selector.name,

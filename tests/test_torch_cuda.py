@@ -24,7 +24,8 @@ from repro_torch.kernels.bilinear_hash import (  # noqa: E402
     FACTORS_LIBRARY, LIBRARY as HASH_LIB, bilinear_hash, bilinear_hash_plain,
     bilinear_hash_seeded, bilinear_hash_seeded_plain)
 from repro_torch.kernels.hamming import (  # noqa: E402
-    LIBRARY as SCAN_LIB, hamming_topk_hist, hamming_topk_hist_plain)
+    FUSED_LIBRARY, LIBRARY as SCAN_LIB, hamming_topk_fused,
+    hamming_topk_fused_plain, hamming_topk_hist, hamming_topk_hist_plain)
 from repro_torch.kernels.lbh_grad import (  # noqa: E402
     LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
 from repro_torch.kernels.ref import (lbh_chain_bound,  # noqa: E402
@@ -41,7 +42,7 @@ def cuda():
     return torch.device("cuda")
 
 
-LIBS = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB)
+LIBS = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY)
 
 
 def test_kernels_build_for_sm90a(cuda):
@@ -112,9 +113,38 @@ def test_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
 
 
 def test_argmin_select_raises_on_cuda(cuda):
-    codes, q, _ = _scan_inputs(cuda, 1, 100, 1, 2, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.hamming_topk_grouped(codes, q, 8, select="argmin")
+    """(Named when select='argmin' raised on the card; kernel 5 is ported
+    now.)  The masked-argmin kernel equals its plain version before the
+    merge, bit for bit, for every pack, with tombstones, l > n, W = 2 and
+    4, l == block_n and all-dead rows; after the merge it equals the hist
+    kernel's output."""
+    cases = [(4, 20000, 1, 32, 128, 0.05), (2, 9000, 2, 7, 64, 0.1),
+             (1, 300, 1, 5, 400, 0.0), (3, 5000, 4, 3, 4096, 0.5),
+             (1, 4096, 1, 2, 16, 1.0), (2, 12288, 1, 9, 40, 0.0)]
+    for g, n, w, b, l, dead in cases:
+        codes, q, act = _scan_inputs(cuda, g, n, w, b, dead, seed=n)
+        if n == 12288:
+            act[4096:8192] = 0               # one all-dead block
+            dead = 1
+        bn = ops._block_rows(n, 4096)
+        l_k = min(l, bn)
+        active = act if dead else None
+        for pack in ("none", "16", "8"):
+            before = hamming_topk_fused.launches
+            kd, ki = hamming_topk_fused(codes, q, l_k, bn, active, pack)
+            torch.cuda.synchronize()
+            assert hamming_topk_fused.launches == before + 1
+            pd, pi = hamming_topk_fused_plain(codes, q, l_k, bn, active,
+                                              pack)
+            assert kd.dtype == pd.dtype and ki.dtype == pi.dtype
+            assert torch.equal(kd, pd) and torch.equal(ki, pi), (n, pack)
+            act_b = None if active is None else active.bool()
+            got = ops.hamming_topk_grouped(codes, q, l, pack=pack,
+                                           active=act_b, select="argmin")
+            want = ops.hamming_topk_grouped(codes, q, l, pack=pack,
+                                            active=act_b, select="hist")
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("mode", ["scan", "probe"])
@@ -234,3 +264,81 @@ def test_hyperplane_index_fits_lbh_through_both_kernels(cuda):
     w = rng.normal(size=65).astype(np.float32)
     assert idx.query(w).nonempty
     assert 0 <= idx.query_scan(w, 64)[0] < 3000
+
+
+def _lsm_pair(cuda, select, **kw):
+    from repro_torch.serving.lsm import LSMMultiTableIndex
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6000, 65)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cfg = dict(method="bh", bits=20, tables=4, batch=32, lsm_delta_min=256,
+               lsm_delta_threshold=0.1, lsm_step_rows=1024,
+               lsm_delta_fused_rows=300, fused_select=select)
+    cfg.update(kw)
+    lsm = LSMMultiTableIndex(IndexConfig(**cfg), device=cuda).fit(x)
+    mono = MultiTableIndex(IndexConfig(**cfg), device=cuda).fit(
+        x, families=lsm.families)
+    return lsm, mono, rng
+
+
+@pytest.mark.parametrize("select", ["hist", "argmin"])
+def test_lsm_stream_on_cuda_matches_monolithic(cuda, select):
+    """The LSM index on the card under inserts, deletes and automatic
+    compactions: per-table Hamming lists and answers identical to the
+    monolithic index over the same rows; both segments go through the
+    selected scan kernel once the delta passes lsm_delta_fused_rows."""
+    lsm, mono, rng = _lsm_pair(cuda, select)
+    ws = rng.normal(size=(32, 65)).astype(np.float32)
+    scan = hamming_topk_fused if select == "argmin" else hamming_topk_hist
+    before = scan.launches
+    for step in range(8):
+        xa = rng.normal(size=(250, 65)).astype(np.float32)
+        ids = lsm.insert(xa)
+        assert np.array_equal(ids, mono.insert(xa))
+        dead = np.concatenate([ids[:20], rng.choice(6000, 30, replace=False)
+                               + 0])
+        dead = dead[mono.active[mono.ids_to_rows(dead)]]
+        lsm.delete(dead)
+        mono.delete(dead)
+        a = lsm.query_scan_batch(ws, l=128, topk=3)
+        b = mono.query_scan_batch(ws, l=128, topk=3)
+        assert np.array_equal(a.ids_topk, b.ids_topk)
+        assert np.array_equal(a.margins_topk, b.margins_topk)
+        for ca, cb in zip(a.candidates, b.candidates):
+            assert np.array_equal(ca, cb)
+        for got, want in zip(lsm.scan_table_topk(ws, l=128),
+                             mono.scan_table_topk(ws, l=128)):
+            assert np.array_equal(got, want)
+    assert lsm.compactions >= 1
+    assert scan.launches - before > 2 * 8      # base and delta, each query
+
+
+def test_async_lsm_with_compactor_on_cuda(cuda):
+    """The async front end over the LSM index with the background
+    compactor: writes and query futures interleave; every answer equals
+    the synchronous service's on a replayed monolithic index."""
+    from repro_torch.serving.async_service import AsyncHashQueryService
+    from repro_torch.serving.service import HashQueryService
+    lsm, mono, rng = _lsm_pair(cuda, "hist", lsm_auto=False,
+                               lsm_step_rows=512)
+    ws = rng.normal(size=(64, 65)).astype(np.float32)
+    sync = HashQueryService(mono, mode="scan", scan_l=128)
+    svc = AsyncHashQueryService(lsm, mode="scan", scan_l=128,
+                                deadline_ms=2.0)
+    lsm.start_compactor()
+    try:
+        for step in range(10):
+            xa = rng.normal(size=(300, 65)).astype(np.float32)
+            ids = svc.submit_insert(xa).result(timeout=60)
+            assert np.array_equal(ids, mono.insert(xa))
+            svc.submit_delete(ids[:10]).result(timeout=60)
+            mono.delete(ids[:10])
+            futs = [svc.submit(w) for w in ws]
+            for f, r in zip(futs, sync.query_batch(ws)):
+                got = f.result(timeout=60)
+                assert (got.index, got.margin) == (r.index, r.margin)
+    finally:
+        lsm.stop_compactor()
+        svc.close()
+    assert lsm.compactions >= 1
+

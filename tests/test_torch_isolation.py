@@ -30,6 +30,10 @@ def _imported_modules(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(PORT_FILES) > 10
+    walked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/serving/lsm.py",
+            "src/repro_torch/serving/async_service.py",
+            "src/repro_torch/kernels/hamming.py"} <= walked
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in PORT_FILES for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -46,10 +50,15 @@ def test_the_walk_sees_forbidden_imports(tmp_path):
 
 def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.core.indexer import IndexConfig
+    from repro_torch.serving.lsm import LSMMultiTableIndex
     from repro_torch.serving.multi_table import MultiTableIndex
+    from repro_torch.svm.active import make_selector
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (MultiTableIndex, LSMMultiTableIndex):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            cls(IndexConfig(method="bh", tables=2))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        MultiTableIndex(IndexConfig(method="bh", tables=2))
+        make_selector("bh", bits=8, radius=2, use_async=True)
     from repro_torch import interop
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         interop.families_from_numpy(
@@ -61,26 +70,28 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     (a 'meta' tensor stands in for a device with no kernel here)."""
     from repro_torch.kernels.bilinear_hash import (bilinear_hash,
                                                    bilinear_hash_seeded)
-    from repro_torch.kernels.hamming import hamming_topk_hist
+    from repro_torch.kernels.hamming import (hamming_topk_fused,
+                                             hamming_topk_hist)
     from repro_torch.kernels.lbh_grad import lbh_chain
     kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
-               lbh_chain)
+               lbh_chain, hamming_topk_fused)
     before = [k.launches for k in kernels]
     x = torch.zeros(5, 3)
     u = torch.zeros(3, 20)
     p, r = torch.zeros(5), torch.zeros(5, 5)
     assert bilinear_hash_seeded(x, [1], 20).shape == (1, 5, 1)
     codes = torch.zeros(1, 5, 1, dtype=torch.int32)
-    assert hamming_topk_hist(codes, codes[:, :2], 3, 8)[0].shape == (
-        1, 1, 2, 3)
+    for scan in (hamming_topk_hist, hamming_topk_fused):
+        assert scan(codes, codes[:, :2], 3, 8)[0].shape == (1, 1, 2, 3)
     assert bilinear_hash(x, u, u).shape == (5, 1)
     assert lbh_chain(p, p, r)[0].shape == (5,)
     assert [k.launches for k in kernels] == before
     meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
         bilinear_hash_seeded(x.to("meta"), [1], 20)
-    with pytest.raises(ValueError, match="unsupported device"):
-        hamming_topk_hist(codes.to("meta"), codes[:, :2].to("meta"), 3, 8)
+    for scan in (hamming_topk_hist, hamming_topk_fused):
+        with pytest.raises(ValueError, match="unsupported device"):
+            scan(codes.to("meta"), codes[:, :2].to("meta"), 3, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         bilinear_hash(*meta(x, u, u))
     with pytest.raises(ValueError, match="unsupported device"):

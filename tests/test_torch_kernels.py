@@ -159,20 +159,21 @@ def _scan_vs_jax(codes, qs, l, active=None, packs=PACKS, block_n=4096,
     want_d, want_i = (np.asarray(a) for a in jsearch.hamming_topk_grouped_hist(
         cj, qj, l, aj))
     for pack in jax_packs:
-        jd, ji = jops.hamming_topk_grouped(cj, qj, l, pack=pack, active=aj,
-                                           block_n=block_n)
-        assert np.array_equal(np.asarray(jd), want_d)
-        assert np.array_equal(np.asarray(ji), want_i)
+        for select in ("hist", "argmin"):
+            jd, ji = jops.hamming_topk_grouped(cj, qj, l, pack=pack,
+                                               active=aj, block_n=block_n,
+                                               select=select)
+            assert np.array_equal(np.asarray(jd), want_d)
+            assert np.array_equal(np.asarray(ji), want_i)
     ct, qt = from_numpy_u32(codes), from_numpy_u32(qs)
     at = None if active is None else torch.from_numpy(active)
-    paths = {f"ops_p{p}": tops.hamming_topk_grouped(
-        ct, qt, l, pack=p, active=at, block_n=block_n) for p in packs}
+    paths = {f"ops_{sel}_p{p}": tops.hamming_topk_grouped(
+        ct, qt, l, pack=p, active=at, block_n=block_n, select=sel)
+        for p in packs for sel in ("hist", "argmin")}
     paths["search_hist"] = tsearch.hamming_topk_grouped_hist(ct, qt, l, at)
     paths["search_lax"] = tsearch.hamming_topk_grouped(ct, qt, l,
                                                        select="argmin",
                                                        active=at)
-    paths["ops_argmin_cpu"] = tops.hamming_topk_grouped(
-        ct, qt, l, select="argmin", active=at)
     for name, (d, i) in paths.items():
         assert d.dtype == i.dtype == torch.int32, name
         assert np.array_equal(d.numpy(), want_d), name
@@ -289,6 +290,58 @@ def test_block_local_layout_equals_jax_kernel(pack):
     assert str(ti.dtype).split(".")[-1] == str(np.asarray(ji).dtype)
     assert np.array_equal(td.numpy(), np.asarray(jd))
     assert np.array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("pack", PACKS)
+@pytest.mark.parametrize("case", ["tombstones", "l_exceeds_n", "all_dead",
+                                  "w2_ties"])
+def test_fused_block_layout_equals_jax_kernel(pack, case):
+    """Kernel 5's plain version before the merge, at equal block_n: the
+    same (G, grid, B, l) candidates in distance order, dtypes and
+    exhausted slots (pack sentinel, row 0) as the Pallas argmin kernel."""
+    rng = np.random.default_rng(16)
+    g, n, w, b, l, bn = 2, 600, 1, 8, 40, 256
+    active = (rng.random(n) < 0.7).astype(np.int32)
+    if case == "l_exceeds_n":
+        n, l, active = 100, 256, (rng.random(100) < 0.8).astype(np.int32)
+    elif case == "all_dead":
+        active[256:512] = 0                      # block 1 has no live row
+    elif case == "w2_ties":
+        w = 2
+    codes = rng.integers(0, 2**32, (g, n, w), dtype=np.uint32)
+    codes[..., 0] &= np.uint32(0x3F)                     # many ties
+    qs = rng.integers(0, 2**32, (g, b, w), dtype=np.uint32)
+    n_pad = -(-n // bn) * bn
+    cj = jnp.asarray(np.pad(codes, ((0, 0), (0, n_pad - n), (0, 0))))
+    aj = jnp.asarray(np.pad(active, (0, n_pad - n))[:, None])
+    jd, ji = jhamming.hamming_topk_fused_kernel(
+        cj, jnp.asarray(qs), l, n, active=aj, block_n=bn, interpret=True,
+        pack=pack)
+    td, ti = thamming.hamming_topk_fused(
+        from_numpy_u32(codes), from_numpy_u32(qs), l, bn,
+        torch.from_numpy(active), pack)
+    assert str(td.dtype).split(".")[-1] == str(np.asarray(jd).dtype)
+    assert str(ti.dtype).split(".")[-1] == str(np.asarray(ji).dtype)
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    _, _, sent = thamming.cand_encoding(pack, w, bn)
+    exhausted = td.numpy() == sent
+    assert exhausted.any() or case not in ("l_exceeds_n", "all_dead")
+    assert (ti.numpy()[exhausted] == 0).all()
+    # after the merge: identical to the hist select and to JAX's argmin
+    at = torch.from_numpy(active.astype(bool))
+    got = tops.hamming_topk_grouped(from_numpy_u32(codes),
+                                    from_numpy_u32(qs), l, block_n=bn,
+                                    active=at, pack=pack, select="argmin")
+    want = tops.hamming_topk_grouped(from_numpy_u32(codes),
+                                     from_numpy_u32(qs), l, block_n=bn,
+                                     active=at, pack=pack, select="hist")
+    jm = jops.hamming_topk_grouped(jnp.asarray(codes), jnp.asarray(qs), l,
+                                   block_n=bn, active=jnp.asarray(
+                                       active.astype(bool)),
+                                   pack=pack, select="argmin")
+    for a, bb, c in zip(got, want, jm):
+        assert torch.equal(a, bb) and np.array_equal(a.numpy(), np.asarray(c))
 
 
 @pytest.mark.parametrize("pack,w,block_n", [

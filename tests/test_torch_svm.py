@@ -204,7 +204,29 @@ def test_hash_selector_fits_on_the_port(corpus, method):
     assert (res.min_margins >= res.exhaustive_margins - 1e-6).all()
 
 
-def test_async_selector_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.2"):
-        TA.make_selector("lbh", bits=8, radius=2, use_async=True,
-                         device="cpu")
+def test_async_selector_is_not_ported_yet(corpus):
+    """(Named when use_async raised; it is ported now.)  The async selector
+    (a future per learner through AsyncHashQueryService) picks exactly
+    what the synchronous selector picks, and a whole AL run through it
+    equals the synchronous run and closes its flush thread."""
+    kw = dict(bits=18, radius=3, tables=2, batch=8, device="cpu")
+    sel_sync = TA.make_selector("bh", **kw).prepare(corpus)
+    sel_async = TA.make_selector("bh", use_async=True, **kw).prepare(corpus)
+    rng = np.random.default_rng(3)
+    w_all = rng.normal(size=(5, corpus.x.shape[1])).astype(np.float32)
+    unlabeled = np.ones(corpus.x.shape[0], dtype=bool)
+    unlabeled[rng.choice(corpus.x.shape[0], 100, replace=False)] = False
+    picks_s, oks_s = sel_sync.select_batch(w_all, unlabeled)
+    picks_a, oks_a = sel_async.select_batch(w_all, unlabeled)
+    sel_async.finish()
+    assert oks_s == oks_a == [True] * 5   # no random fallback fired
+    assert picks_s == picks_a
+    assert sel_async.service.stats()["completed"] == 5
+    sels = [TA.make_selector("bh", use_async=a, seed=2, **kw)
+            for a in (False, True)]
+    runs = [TA.run_active_learning(corpus, sel, TA.ALConfig(**AL),
+                                   device="cpu") for sel in sels]
+    assert sels[1].service._thread is None      # finish() closed it
+    assert np.array_equal(runs[0].min_margins, runs[1].min_margins)
+    assert np.array_equal(runs[0].nonempty, runs[1].nonempty)
+    assert np.array_equal(runs[0].map_curve, runs[1].map_curve)
