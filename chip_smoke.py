@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--seed 0] [--batches 16]
 
-Run from the repository root.  It builds the port's five CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version at the shapes its path gives it, then drives three paths at full
-size on the Tiny-1M geometry (1,060,000 x 385 float32 features, 10
-classes, from ``--seed``):
+Run from the repository root.  It builds the port's eight CUDA kernels
+(six libraries) from ``src/repro_torch/kernels/csrc``, holds each against
+its plain PyTorch version at the shapes its path gives it, then drives four
+paths at full size on the Tiny-1M geometry (1,060,000 x 385 float32
+features, 10 classes, from ``--seed``):
 
 - serving: ``MultiTableIndex(method="bh", bits=20, tables=4)`` fitted on the
   card and ``HashQueryService(mode="scan", scan_l=128)`` answering
@@ -26,7 +26,12 @@ classes, from ``--seed``):
   SVM normals through its table and its scan, then 10 iterations of SVM
   active learning with all 10 one-vs-all SVMs through an LBH
   ``HashSelector``, checked against the exhaustive selector and the BH
-  warm start's Gram-fit error.
+  warm start's Gram-fit error;
+- the kernel layer's remaining entry points on the serving path's codes:
+  ``ops.hamming_topk_grouped(dma=True)`` (the pipelined hist kernel),
+  ``ops.hamming_distances_batch`` per table followed by
+  ``core.search.lex_smallest`` (the unfused route, checked against the
+  fused scan) and ``ops.hamming_distances`` per query.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  Every phase that fails stops the run with a
@@ -68,8 +73,11 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -143,9 +151,11 @@ def main() -> int:
         bilinear_hash_plain, bilinear_hash_seeded,
         bilinear_hash_seeded_plain)
     from repro_torch.kernels.hamming import (
-        FUSED_LIBRARY, LIBRARY as SCAN_LIB, cand_encoding,
+        DISTANCE_LIBRARY, FUSED_LIBRARY, LIBRARY as SCAN_LIB, cand_encoding,
+        hamming_distance, hamming_distance_batch,
+        hamming_distance_batch_plain, hamming_distance_plain,
         hamming_topk_fused, hamming_topk_fused_plain, hamming_topk_hist,
-        hamming_topk_hist_plain)
+        hamming_topk_hist_dma, hamming_topk_hist_plain)
     from repro_torch.kernels.lbh_grad import (
         LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
     from repro_torch.kernels.ref import lbh_chain_bound, sign_flip_ratios
@@ -183,9 +193,10 @@ def main() -> int:
     # -- 2. build -----------------------------------------------------------
     phase("2 build")
     t0 = time.perf_counter()
-    libs = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY)
+    libs = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY,
+            DISTANCE_LIBRARY)
     _build.build(libs)
-    print(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+    print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         log = _build.build_log(lib)
         check("sm_90a" in log, f"{lib} compiled for sm_90a")
@@ -270,15 +281,19 @@ def main() -> int:
     q = flip_packed(bilinear_hash_seeded(w0, seeds, BITS), BITS)
     bn = ops._block_rows(n, 4096)
     l_k = min(SCAN_L, bn)
-    scans = {"hist": (hamming_topk_hist, hamming_topk_hist_plain),
-             "argmin": (hamming_topk_fused, hamming_topk_fused_plain)}
-    scan_err = {"hist": 0, "argmin": 0}   # largest |kernel - plain| seen
+    packs_all = ("none", "16", "8")
+    scan_kernels = {"hist": (hamming_topk_hist, hamming_topk_hist_plain),
+                    "argmin": (hamming_topk_fused, hamming_topk_fused_plain),
+                    "hist_dma": (hamming_topk_hist_dma,
+                                 hamming_topk_hist_plain)}
+    scan_err = dict.fromkeys(scan_kernels, 0)   # largest |kernel - plain|
 
-    def scan_case(label, codes, queries, l, active=None,
-                  packs=("none", "16", "8"), selects=("hist", "argmin")):
-        """Each select's kernel against its plain version before the merge,
-        and the merged top-l against the plain scan (and, for argmin, the
-        hist kernel's merged output), bit for bit."""
+    def scan_case(label, codes, queries, l, active=None, packs=packs_all,
+                  selects=("hist", "argmin")):
+        """Each select's kernel against its plain version before the merge
+        (and the pipelined kernel against the hist kernel too), and the
+        merged top-l against the plain scan and the hist kernel's merged
+        output, bit for bit."""
         nb = ops._block_rows(codes.shape[1], 4096)
         lk = min(l, nb)
         act_i = None if active is None else active.to(torch.int32)
@@ -287,12 +302,19 @@ def main() -> int:
             hist = ops.hamming_topk_grouped(codes, queries, l, pack=pack,
                                             active=active, select="hist")
             for select in selects:
-                kern, plain = scans[select]
+                kern, plain = scan_kernels[select]
                 kd, ki = kern(codes, queries, lk, nb, act_i, pack)
                 pd, pi = plain(codes, queries, lk, nb, act_i, pack)
                 got = (hist if select == "hist" else ops.hamming_topk_grouped(
                     codes, queries, l, pack=pack, active=active,
-                    select=select))
+                    select="argmin" if select == "argmin" else "hist",
+                    dma=select == "hist_dma"))
+                if select == "hist_dma":
+                    hd, hi = hamming_topk_hist(codes, queries, lk, nb, act_i,
+                                               pack)
+                    check(torch.equal(kd, hd) and torch.equal(ki, hi),
+                          f"{label} hist_dma pack {pack}: block output "
+                          f"equals the hist kernel's")
                 for a, b in ((kd, pd), (ki, pi), (got[0], want[0]),
                              (got[1], want[1])):
                     err = int((a.long() - b.long()).abs().max())
@@ -308,25 +330,31 @@ def main() -> int:
                   f"identical (G={codes.shape[0]} n={codes.shape[1]} "
                   f"W={codes.shape[2]} B={queries.shape[1]} l={l})")
 
-    scan_case("main", codes_k, q, SCAN_L, selects=("hist",))
     dead = torch.from_numpy(rng.random(n) < 0.1).to(dev)
-    scan_case("10% tombstoned", codes_k, q, SCAN_L, active=~dead,
-              packs=("16",), selects=("hist",))
     # the streaming path's shapes: a base of ~1M rows with ~5% tombstones,
     # deltas of 4,096 and 20,000 rows
     live5 = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
-    scan_case("base, 5% tombstoned", codes_k, q, SCAN_L, active=live5)
-    for rows in (4096, 20_000):
-        scan_case(f"delta of {rows} rows", codes_k[:, -rows:].contiguous(),
-                  q, SCAN_L, active=live5[-rows:])
-    scan_case("l > n", codes_k[:, :100].contiguous(), q, SCAN_L)
     codes48 = bilinear_hash_seeded(x[:200_000], seeds, 48)
     q48 = flip_packed(bilinear_hash_seeded(w0, seeds, 48), 48)
-    scan_case("W=2 (k=48)", codes48, q48, SCAN_L)
     block_dead = torch.ones(3 * 4096, dtype=torch.bool, device=dev)
     block_dead[4096:8192] = False
-    scan_case("an all-dead block", codes_k[:, :3 * 4096].contiguous(), q,
-              SCAN_L, active=block_dead)
+    both = ("hist", "argmin")
+    # (label, codes, queries, active, packs and selects of this phase);
+    # phase 13 runs every case again through the pipelined kernel
+    scan_cases = [
+        ("main", codes_k, q, None, packs_all, ("hist",)),
+        ("10% tombstoned", codes_k, q, ~dead, ("16",), ("hist",)),
+        ("base, 5% tombstoned", codes_k, q, live5, packs_all, both),
+        *[(f"delta of {rows} rows", codes_k[:, -rows:].contiguous(), q,
+           live5[-rows:], packs_all, both) for rows in (4096, 20_000)],
+        ("l > n", codes_k[:, :100].contiguous(), q, None, packs_all, both),
+        ("W=2 (k=48)", codes48, q48, None, packs_all, both),
+        ("an all-dead block", codes_k[:, :3 * 4096].contiguous(), q,
+         block_dead, packs_all, both),
+    ]
+    for label, c, qc, act, packs, selects in scan_cases:
+        scan_case(label, c, qc, SCAN_L, active=act, packs=packs,
+                  selects=selects)
     popc_s = POPC_PER_CLK_SM * sms * max_clock_mhz * 1e6
     grid = -(-n // bn)
     d_dtype, i_dtype, _ = cand_encoding("16", w_words, bn)
@@ -380,11 +408,12 @@ def main() -> int:
         max_abs_err=scan_err["argmin"], ms=fused_ms,
         plain_ms=fused_plain_ms, bound_ms=fused_bound_ms,
         bound_by=fused_bound_by, library_ms=None)
-    del codes_p, codes48, act5
+    del codes_p, act5
     torch.cuda.synchronize()
 
     all_kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
-                   lbh_chain, hamming_topk_fused)
+                   lbh_chain, hamming_topk_fused, hamming_topk_hist_dma,
+                   hamming_distance_batch, hamming_distance)
 
     def zero_counts():
         for kern in all_kernels:
@@ -983,13 +1012,184 @@ def main() -> int:
           f"{1 - busy_ms / wall_ms if busy_ms else 'not measured'}), "
           f"chain kernel {chain_dev} ms per launch")
 
-    # -- 13. times ----------------------------------------------------------
-    phase("13 times")
+    # -- 13. kernel layer: distances and the pipelined scan -----------------
+    phase("13 kernel layer: distances and the pipelined scan")
+    # the tiny1m-scan shape, on phase 3's codes and phase 4's queries
+    codes_s, q_s = scan_cases[0][1], scan_cases[0][2]
+    ids_n = torch.arange(n, dtype=torch.int32, device=dev).expand(BATCH, n)
+
+    def unfused_route():
+        """benchmarks/serving_scan.py's unfused route: the full (B, n)
+        distance matrix per table, then the lexicographic smallest l."""
+        out = [search.lex_smallest(ops.hamming_distances_batch(
+            codes_s[t], q_s[t]), ids_n, SCAN_L) for t in range(TABLES)]
+        return (torch.stack([dd for dd, _ in out]),
+                torch.stack([ii for _, ii in out]))
+
+    zero_counts()
+    fused_dma = ops.hamming_topk_grouped(codes_s, q_s, SCAN_L, dma=True)
+    unfused = unfused_route()
+    dist_b = [ops.hamming_distances_batch(codes_s[t], q_s[t])
+              for t in range(TABLES)]
+    dist_1 = [[ops.hamming_distances(codes_s[t], q_s[t, b])
+               for b in range(BATCH)] for t in range(TABLES)]
+    torch.cuda.synchronize()
+    layer_launches = read_counts()
+    print(f"launches on the kernel layer's path: {layer_launches}")
+    check(layer_launches["hamming_topk_hist_dma"] == 1
+          and layer_launches["hamming_distance_batch"] == 2 * TABLES
+          and layer_launches["hamming_distance"] == TABLES * BATCH
+          and layer_launches["hamming_topk_hist"] == 0,
+          "the pipelined scan, the batched and the single-query distance "
+          "kernels launched on the kernel layer's path, the hist kernel not")
+    fused = ops.hamming_topk_grouped(codes_s, q_s, SCAN_L)
+    want = search.hamming_topk_grouped(codes_s, q_s, SCAN_L)
+    check(all(torch.equal(a, b) for a, b in zip(fused_dma, fused))
+          and all(torch.equal(a, b) for a, b in zip(fused, want)),
+          "the fused scan through the pipelined kernel equals the hist "
+          "kernel's and the plain scan")
+    check(all(torch.equal(a, b) for a, b in zip(unfused, fused)),
+          "the unfused route (distance matrix + lex_smallest) equals the "
+          "fused scan, lists and ids")
+    dist_err = {"batch": 0, "single": 0}
+    for t in range(TABLES):
+        plain_b = hamming_distance_batch_plain(codes_s[t], q_s[t])
+        dist_err["batch"] = max(dist_err["batch"], int(
+            (dist_b[t] - plain_b).abs().max()))
+        check(torch.equal(dist_b[t], plain_b),
+              f"table {t}: the batched distances equal the plain ones")
+        for b in range(BATCH):
+            plain_1 = hamming_distance_plain(codes_s[t], q_s[t, b])
+            dist_err["single"] = max(dist_err["single"], int(
+                (dist_1[t][b] - plain_1).abs().max()))
+            check(torch.equal(dist_1[t][b], plain_1)
+                  and torch.equal(dist_b[t][b], dist_1[t][b]),
+                  f"table {t} query {b}: the single-query distances equal "
+                  f"the plain ones and row {b} of the batch")
+    print(f"distances: kernel 6 equals its plain version on all {TABLES} "
+          f"tables ({BATCH} x {n}), kernel 7 on all {TABLES * BATCH} "
+          f"queries, each row of the batch equals kernel 7; the unfused "
+          f"route equals the fused scan")
+    del dist_1, unfused, fused_dma, want
+    for label, c, qc, act, _, _ in scan_cases:
+        scan_case(label, c, qc, SCAN_L, active=act, selects=("hist_dma",))
+
+    # times: kernel 3 in turns with kernel 2 on the same inputs
+    def k2():
+        return hamming_topk_hist(codes_s, q_s, l_k, bn, None, "16")
+
+    def k3():
+        return hamming_topk_hist_dma(codes_s, q_s, l_k, bn, None, "16")
+
+    turns = [cuda_ms(torch, f, 20) for f in (k2, k3, k3, k2)]
+    dma_ms = (turns[1] + turns[2]) / 2
+    _, prof = device_profile(torch, lambda: [f() for f in (k2, k3) * 5])
+    dma_dev_ms = kernel_device_ms(prof, "topk_hist_dma_kernel")
+    hist_dev_ms = kernel_device_ms(prof, "topk_hist_kernel")
+    print(f"pipelined hist kernel (G={TABLES}, n={n}, B={BATCH}, l={l_k}, "
+          f"pack 16), CUDA events in turns hist / dma / dma / hist: "
+          f"{turns} ms; device time (torch.profiler): dma {dma_dev_ms} ms, "
+          f"hist {hist_dev_ms} ms; bound {scan_bound_ms} ms "
+          f"({scan_bound_by}); plain {scan_plain_ms} ms (phase 4)")
+    records["hamming_topk_hist_dma"] = dict(
+        name="hamming_topk_hist_dma", route="cuda",
+        source="src/repro_torch/kernels/csrc/hamming_topk_hist.cu",
+        replaces="src/repro/kernels/hamming.py:496",
+        max_abs_err=scan_err["hist_dma"], ms=dma_ms, plain_ms=scan_plain_ms,
+        bound_ms=scan_bound_ms, bound_by=scan_bound_by, library_ms=None)
+
+    def bits_f32(codes):
+        """(rows, 32 W) float32 0/1 bits of packed codes (rows, W)."""
+        sh = torch.arange(32, dtype=torch.int32, device=codes.device)
+        return ((codes[..., None] >> sh) & 1).reshape(
+            codes.shape[0], -1).to(torch.float32)
+
+    def distance_bound(queries):
+        """(bound ms, bound_by) of one table's distances to `queries`:
+        codes and queries read once, a (queries, n) int32 output written
+        once; one popcount per row, query and word."""
+        t_bytes = (n * w_words + queries * w_words + queries * n) * 4 \
+            / HBM_BYTES_S
+        t_ops = n * queries * w_words / popc_s
+        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                           else "bytes")
+
+    # the library column: torch.cdist(p=0) counts differing elements, the
+    # Hamming distance over 0/1 bits; the unpacking is left out of its time
+    c_bits, q_bits = bits_f32(codes_s[0]), bits_f32(q_s[0])
+    lib_b = torch.cdist(q_bits, c_bits, p=0)
+    lib_1 = torch.cdist(q_bits[:1], c_bits, p=0)
+    check(torch.equal(lib_b.to(torch.int32), dist_b[0])
+          and torch.equal(lib_1[0].to(torch.int32), dist_b[0][0]),
+          "torch.cdist(p=0) over the unpacked bits gives the same distances")
+    codes0, queries0, query00 = codes_s[0], q_s[0], q_s[0, 0]
+    dist_times = {}
+    for name, kern, plain, lib, reps in (
+            ("hamming_distance_batch",
+             lambda: hamming_distance_batch(codes0, queries0),
+             lambda: hamming_distance_batch_plain(codes0, queries0),
+             lambda: torch.cdist(q_bits, c_bits, p=0), 20),
+            ("hamming_distance", lambda: hamming_distance(codes0, query00),
+             lambda: hamming_distance_plain(codes0, query00),
+             lambda: torch.cdist(q_bits[:1], c_bits, p=0), 100)):
+        ev = {k: cuda_ms(torch, f, reps) for k, f in
+              (("kernel", kern), ("plain", plain), ("library", lib))}
+        busy = {}
+        for k, f in (("plain", plain), ("library", lib)):
+            ms, _ = device_profile(torch, lambda f=f: [f() for _ in range(
+                reps)])
+            check(ms > 0, f"the profiler saw {name}'s {k} device work")
+            busy[k] = ms / reps
+        _, prof = device_profile(torch, lambda f=kern: [f() for _ in range(
+            reps)])
+        frag = ("distance_batch_kernel" if name == "hamming_distance_batch"
+                else "distance_kernel")
+        busy["kernel"] = kernel_device_ms(prof, frag)
+        check(busy["kernel"] is not None, f"the profiler saw {name}")
+        dist_times[name] = {"events": ev, "device": busy}
+    b_bound, b_bound_by = distance_bound(BATCH)
+    s_bound, s_bound_by = distance_bound(1)
+    print("distance kernels at the serving shape (one table, n "
+          f"{n}, W {w_words}), ms per call, CUDA events over back-to-back "
+          "calls and device time (torch.profiler), kernel / plain / "
+          "torch.cdist(p=0) (unpacking not timed): " + json.dumps(dist_times)
+          + f"; bounds: batch (B={BATCH}) {b_bound} ms ({b_bound_by}), "
+          f"single {s_bound} ms ({s_bound_by})")
+    for name, err, bound, bound_by, src in (
+            ("hamming_distance_batch", dist_err["batch"], b_bound, b_bound_by,
+             "src/repro/kernels/hamming.py:516"),
+            ("hamming_distance", dist_err["single"], s_bound, s_bound_by,
+             "src/repro/kernels/hamming.py:123")):
+        dev_t = dist_times[name]["device"]
+        records[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/hamming_distance.cu",
+            replaces=src, max_abs_err=err, ms=dev_t["kernel"],
+            plain_ms=dev_t["plain"], bound_ms=bound, bound_by=bound_by,
+            library_ms=dev_t["library"])
+    del lib_b, lib_1, c_bits, dist_b
+
+    # the unfused route end to end against the fused scans
+    route_ms = {"unfused (kernel 6 x 4 + lex_smallest)": cuda_ms(
+        torch, unfused_route, 5),
+        "fused, hist kernel": cuda_ms(torch, lambda: ops.hamming_topk_grouped(
+            codes_s, q_s, SCAN_L), 20),
+        "fused, pipelined hist kernel": cuda_ms(
+            torch, lambda: ops.hamming_topk_grouped(codes_s, q_s, SCAN_L,
+                                                    dma=True), 20)}
+    print(f"scan + merge of {TABLES} tables x {BATCH} queries, l {SCAN_L}, "
+          f"ms per call (CUDA events): " + json.dumps(route_ms))
+
+    # -- 14. times ----------------------------------------------------------
+    phase("14 times")
+    layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
+             "hamming_distance")
     kernels = []
     for name, rec in records.items():
         path = (serve_launches if name in ("bilinear_hash_seeded",
                                            "hamming_topk_hist")
                 else argmin_launches if name == "hamming_topk_fused"
+                else layer_launches if name in layer
                 else lbh_launches)
         rec["launches"] = path[name]
         kernels.append({k: rec[k] for k in (

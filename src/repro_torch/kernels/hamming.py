@@ -1,21 +1,34 @@
-"""Fused Hamming scans with block-local top-l selection: the CUDA kernels'
-wrappers, their launch counts and their plain PyTorch versions.
+"""Hamming kernels: the CUDA kernels' wrappers, their launch counts and
+their plain PyTorch versions.
 
-For each (group, row block) and each of the group's B queries, both
-kernels emit the exact block-local smallest-t set of (distance, row)
-pairs, t = min(l, live rows in the block), ties to the lowest row:
+The fused scans emit, for each (group, row block) and each of the group's
+B queries, the exact block-local smallest-t set of (distance, row) pairs,
+t = min(l, live rows in the block), ties to the lowest row:
 
-- ``hamming_topk_hist`` (csrc/hamming_topk_hist.cu) selects by a distance
-  histogram and emits in row order, slots past t carrying (pack sentinel,
-  block_n - 1); it replaces the TPU kernel ``hamming_topk_hist_kernel``
-  with dma=False (src/repro/kernels/hamming.py:429);
+- ``hamming_topk_hist`` (csrc/hamming_topk_hist.cu, ``topk_hist_kernel``)
+  selects by a distance histogram and emits in row order, slots past t
+  carrying (pack sentinel, block_n - 1); it replaces the TPU kernel
+  ``hamming_topk_hist_kernel`` with dma=False
+  (src/repro/kernels/hamming.py:429);
+- ``hamming_topk_hist_dma`` (the same source, ``topk_hist_dma_kernel``)
+  gives the same output from persistent blocks that prefetch the next code
+  tile with cp.async; it replaces ``hamming_topk_hist_kernel`` with
+  dma=True;
 - ``hamming_topk_fused`` (csrc/hamming_topk_fused.cu) selects by l rounds
   of masked argmin and emits in (distance, row) order, slots past t
   carrying (pack sentinel, 0); it replaces ``hamming_topk_fused_kernel``
   (src/repro/kernels/hamming.py:207).
 
 The merge that turns block-local candidates into the global top-l lives in
-``kernels.ops`` and is the same for both.
+``kernels.ops`` and is the same for all three.  The unfused distances:
+
+- ``hamming_distance`` (csrc/hamming_distance.cu, ``distance_kernel``):
+  (n,) distances to one query; it replaces ``hamming_distance_kernel``
+  (src/repro/kernels/hamming.py:123);
+- ``hamming_distance_batch`` (the same source,
+  ``distance_batch_kernel``): the (B, n) distance matrix; it replaces
+  ``hamming_distance_batch_kernel`` (src/repro/kernels/hamming.py:516),
+  whose (n, B) output the JAX wrapper transposes to (B, n).
 """
 from __future__ import annotations
 
@@ -35,12 +48,30 @@ _PACK_CODE = {"none": 0, "16": 1, "8": 2}
 
 LIBRARY = "hamming_topk_hist"
 FUSED_LIBRARY = "hamming_topk_fused"
+DISTANCE_LIBRARY = "hamming_distance"
 
 
-def _signatures(prefix: str) -> dict:
-    return {f"{prefix}_fits": (ctypes.c_int, [ctypes.c_int] * 2),
-            f"{prefix}_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
-                                 + [ctypes.c_int] * 9 + [ctypes.c_void_p])}
+def _scan_signatures(*prefixes: str) -> dict:
+    sigs = {}
+    for prefix in prefixes:
+        sigs[f"{prefix}_fits"] = (ctypes.c_int, [ctypes.c_int] * 2)
+        sigs[f"{prefix}_launch"] = (ctypes.c_int, [ctypes.c_void_p] * 5
+                                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return sigs
+
+
+# every function of each library, declared when the library first loads
+_SIGNATURES = {
+    LIBRARY: _scan_signatures("topk_hist", "topk_hist_dma"),
+    FUSED_LIBRARY: _scan_signatures("topk_fused"),
+    DISTANCE_LIBRARY: {
+        "distance_fits": (ctypes.c_int, [ctypes.c_int]),
+        "distance_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
+                            + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+        "distance_batch_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    },
+}
 
 
 def cand_encoding(pack: str, w: int, block_n: int):
@@ -150,6 +181,32 @@ def hamming_topk_hist(codes, queries, l_k: int, block_n: int, active=None,
 hamming_topk_hist.launches = 0
 
 
+def hamming_topk_hist_dma(codes, queries, l_k: int, block_n: int,
+                          active=None, pack: str = "16"):
+    """The histogram-select scan through the pipelined kernel: persistent
+    blocks walk the (group, row block) steps, each copying its next code
+    tile into a second shared buffer (cp.async) while it selects from the
+    current one.  Same arguments and outputs as ``hamming_topk_hist``, bit
+    for bit, so its plain version is ``hamming_topk_hist_plain``.  Its
+    block holds two tiles, so it refuses some shapes that
+    ``hamming_topk_hist`` takes (W = 4 at block_n = 8192).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``hamming_topk_hist_dma.launches``) or
+    raises.
+    """
+    if codes.device.type == "cpu":
+        return hamming_topk_hist_plain(codes, queries, l_k, block_n, active,
+                                       pack)
+    out = _launch_scan(LIBRARY, "topk_hist_dma", codes, queries, l_k,
+                       block_n, active, pack)
+    hamming_topk_hist_dma.launches += 1
+    return out
+
+
+hamming_topk_hist_dma.launches = 0
+
+
 def hamming_topk_fused_plain(codes, queries, l_k: int, block_n: int,
                              active=None, pack: str = "none"):
     """Plain version of the masked-argmin kernel, all blocks at once: a
@@ -215,7 +272,7 @@ def _launch_scan(library: str, prefix: str, codes, queries, l_k: int,
     out_i = torch.empty((g, grid, b, l_k), dtype=i_dtype, device=codes.device)
     if out_d.numel() == 0:
         return out_d, out_i
-    lib = _build.load(library, _signatures(prefix))
+    lib = _build.load(library, _SIGNATURES[library])
     if not getattr(lib, f"{prefix}_fits")(w, block_n):
         raise ValueError(f"W = {w} at block_n = {block_n} needs more shared "
                          f"memory than one block may use")
@@ -229,3 +286,84 @@ def _launch_scan(library: str, prefix: str, codes, queries, l_k: int,
     if err != 0:
         raise RuntimeError(f"{library} launch failed: CUDA error {err}")
     return out_d, out_i
+
+
+def hamming_distance_plain(codes, query):
+    """(n,) int32 distances between packed rows codes (n, W) int32 and one
+    packed query (W,) int32."""
+    return hamming_packed(codes, query[None, :])
+
+
+def hamming_distance_batch_plain(codes, queries):
+    """(B, n) int32 distances between packed rows codes (n, W) int32 and B
+    packed queries (B, W) int32: row b is query b's distances."""
+    return hamming_packed(codes[None, :, :], queries[:, None, :])
+
+
+def hamming_distance(codes, query):
+    """(n,) int32 Hamming distances of codes (n, W) int32 to query (W,)
+    int32; any n.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``hamming_distance.launches``) or raises.
+    """
+    if codes.device.type == "cpu":
+        return hamming_distance_plain(codes, query)
+    out = _launch_distances("distance_launch", codes, query[None, :])
+    hamming_distance.launches += 1
+    return out[0]
+
+
+hamming_distance.launches = 0
+
+
+def hamming_distance_batch(codes, queries):
+    """(B, n) int32 Hamming distances of codes (n, W) int32 to queries
+    (B, W) int32, row b for query b; any n and B.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``hamming_distance_batch.launches``) or
+    raises.
+    """
+    if codes.device.type == "cpu":
+        return hamming_distance_batch_plain(codes, queries)
+    out = _launch_distances("distance_batch_launch", codes, queries)
+    hamming_distance_batch.launches += 1
+    return out
+
+
+hamming_distance_batch.launches = 0
+
+
+def _launch_distances(fn: str, codes, queries):
+    """Check the inputs of a distance kernel, allocate its (B, n) output
+    and launch ``fn`` from ``csrc/hamming_distance.cu``; raises on anything
+    the kernel does not take and on a failed launch."""
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    n, w = codes.shape
+    b = queries.shape[0]
+    for name, t, shape in (("codes", codes, (n, w)),
+                           ("queries", queries, (b, w))):
+        if (t.device != codes.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                             f"shape {shape} on {codes.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    out = torch.empty((b, n), dtype=torch.int32, device=codes.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load(DISTANCE_LIBRARY, _SIGNATURES[DISTANCE_LIBRARY])
+    if not lib.distance_fits(w):
+        raise ValueError(f"W = {w} words per query needs more shared memory "
+                         f"than one block may use")
+    args = [codes.data_ptr(), queries.data_ptr(), out.data_ptr(), n, w]
+    if fn == "distance_batch_launch":
+        args.append(b)
+    with torch.cuda.device(codes.device):
+        err = getattr(lib, fn)(
+            *args, torch.cuda.current_stream(codes.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{DISTANCE_LIBRARY} launch failed: CUDA error "
+                           f"{err}")
+    return out

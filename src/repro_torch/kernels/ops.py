@@ -14,8 +14,11 @@ from repro_torch.core.search import (DIST_SENTINEL, _pad_topk,
 from repro_torch.kernels import bilinear_hash as _bh
 from repro_torch.kernels import lbh_grad as _lbh
 from repro_torch.kernels.bilinear_hash import bilinear_hash_seeded
-from repro_torch.kernels.hamming import (cand_encoding, hamming_topk_fused,
-                                         hamming_topk_hist)
+from repro_torch.kernels.hamming import (cand_encoding, hamming_distance,
+                                         hamming_distance_batch,
+                                         hamming_topk_fused,
+                                         hamming_topk_hist,
+                                         hamming_topk_hist_dma)
 
 SUBLANE = 8   # row-block sizes are multiples of 8, as in the JAX package
 
@@ -55,9 +58,24 @@ def bilinear_hash_seeded_grouped(x, seeds, k: int) -> torch.Tensor:
     return bilinear_hash_seeded(_f32(x), [int(s) for s in seeds], k)
 
 
+def hamming_distances(codes, query, *, block_n: int = 2048):
+    """(n,) int32 Hamming distances between packed code rows codes (n, W)
+    int32 and one packed query (W,).  Any n: the kernel masks the tail, so
+    nothing is padded; block_n is the JAX signature's and changes nothing
+    here (the kernel's blocks are 256 rows)."""
+    return hamming_distance(codes.contiguous(), query.contiguous())
+
+
+def hamming_distances_batch(codes, queries, *, block_n: int = 2048):
+    """(B, n) int32 Hamming distances between one code table codes (n, W)
+    int32 and B packed queries (B, W), row b for query b; the kernel writes
+    this layout itself.  block_n as in ``hamming_distances``."""
+    return hamming_distance_batch(codes.contiguous(), queries.contiguous())
+
+
 def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
-                         select: str | None = None, active=None,
-                         pack: str | None = None):
+                         select: str | None = None, dma: bool = False,
+                         active=None, pack: str | None = None):
     """Fused smallest-l scan over G stacked code groups, one kernel launch.
 
     codes: (G, n, W) int32 — G sub-tables over the same row space;
@@ -69,11 +87,15 @@ def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
     ``"8"``, ``"none"``; None reads REPRO_CAND_PACK); every pack is
     bit-identical after the merge.  select: ``"hist"`` (histogram select,
     ``hamming_topk_hist``) or ``"argmin"`` (l rounds of masked argmin,
-    ``hamming_topk_fused``); None reads REPRO_FUSED_SELECT.  Both are
-    bit-identical after the merge.
+    ``hamming_topk_fused``); None reads REPRO_FUSED_SELECT.  dma=True routes
+    the hist select through the pipelined kernel
+    (``hamming_topk_hist_dma``); argmin ignores it, as in the JAX package.
+    All are bit-identical after the merge.
     """
-    scan = (hamming_topk_fused if env_fused_select(select) == "argmin"
-            else hamming_topk_hist)
+    if env_fused_select(select) == "argmin":
+        scan = hamming_topk_fused
+    else:
+        scan = hamming_topk_hist_dma if dma else hamming_topk_hist
     pack = env_cand_pack(pack)
     g, n, w = codes.shape
     b = queries.shape[1]

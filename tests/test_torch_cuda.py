@@ -6,7 +6,8 @@ import).  Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the scan is integer work and must match bit for bit; both
+Tolerances: the scans and distances are integer work and must match bit
+for bit; both
 hashes may differ from their plain versions only in bits whose projection
 lies within the float32 rounding bound of zero
 (kernels.ref.sign_flip_ratios); the LBH chain within its float32 rounding
@@ -24,8 +25,10 @@ from repro_torch.kernels.bilinear_hash import (  # noqa: E402
     FACTORS_LIBRARY, LIBRARY as HASH_LIB, bilinear_hash, bilinear_hash_plain,
     bilinear_hash_seeded, bilinear_hash_seeded_plain)
 from repro_torch.kernels.hamming import (  # noqa: E402
-    FUSED_LIBRARY, LIBRARY as SCAN_LIB, hamming_topk_fused,
-    hamming_topk_fused_plain, hamming_topk_hist, hamming_topk_hist_plain)
+    DISTANCE_LIBRARY, FUSED_LIBRARY, LIBRARY as SCAN_LIB, hamming_distance,
+    hamming_distance_batch, hamming_distance_batch_plain,
+    hamming_distance_plain, hamming_topk_fused, hamming_topk_fused_plain,
+    hamming_topk_hist, hamming_topk_hist_dma, hamming_topk_hist_plain)
 from repro_torch.kernels.lbh_grad import (  # noqa: E402
     LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
 from repro_torch.kernels.ref import (lbh_chain_bound,  # noqa: E402
@@ -42,7 +45,8 @@ def cuda():
     return torch.device("cuda")
 
 
-LIBS = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY)
+LIBS = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY,
+        DISTANCE_LIBRARY)
 
 
 def test_kernels_build_for_sm90a(cuda):
@@ -112,11 +116,10 @@ def test_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
     assert torch.equal(got[1].cpu(), want[1])
 
 
-def test_argmin_select_raises_on_cuda(cuda):
-    """(Named when select='argmin' raised on the card; kernel 5 is ported
-    now.)  The masked-argmin kernel equals its plain version before the
-    merge, bit for bit, for every pack, with tombstones, l > n, W = 2 and
-    4, l == block_n and all-dead rows; after the merge it equals the hist
+def test_argmin_kernel_vs_plain(cuda):
+    """The masked-argmin kernel equals its plain version before the merge,
+    bit for bit, for every pack, with tombstones, l > n, W = 2 and 4,
+    l == block_n and all-dead rows; after the merge it equals the hist
     kernel's output."""
     cases = [(4, 20000, 1, 32, 128, 0.05), (2, 9000, 2, 7, 64, 0.1),
              (1, 300, 1, 5, 400, 0.0), (3, 5000, 4, 3, 4096, 0.5),
@@ -145,6 +148,80 @@ def test_argmin_select_raises_on_cuda(cuda):
                                             active=act_b, select="hist")
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("pack", ["none", "16", "8"])
+@pytest.mark.parametrize("g,n,w,b,l,dead", [
+    (4, 20000, 1, 32, 128, 0.05),
+    (2, 9000, 2, 7, 64, 0.1),
+    (1, 300, 1, 5, 400, 0.0),        # l > n
+    (3, 5000, 4, 3, 4096, 0.5),      # l == block_n, W = 4
+    (1, 4096, 1, 2, 16, 1.0),        # every row dead
+    (2, 1_000_001, 1, 9, 40, 0.0),   # many steps per persistent block
+])
+def test_dma_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
+    """The pipelined hist kernel equals its plain version and the hist
+    kernel before the merge, bit for bit, and after the merge the hist
+    kernel's output."""
+    codes, q, act = _scan_inputs(cuda, g, n, w, b, dead, seed=n + 1)
+    bn = ops._block_rows(n, 4096)
+    l_k = min(l, bn)
+    active = act if dead else None
+    before = hamming_topk_hist_dma.launches
+    kd, ki = hamming_topk_hist_dma(codes, q, l_k, bn, active, pack)
+    torch.cuda.synchronize()
+    assert hamming_topk_hist_dma.launches == before + 1
+    pd, pi = hamming_topk_hist_plain(codes, q, l_k, bn, active, pack)
+    hd, hi = hamming_topk_hist(codes, q, l_k, bn, active, pack)
+    assert kd.dtype == pd.dtype and ki.dtype == pi.dtype
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kd, hd) and torch.equal(ki, hi)
+    act_b = None if active is None else active.bool()
+    got = ops.hamming_topk_grouped(codes, q, l, pack=pack, active=act_b,
+                                   dma=True)
+    want = ops.hamming_topk_grouped(codes, q, l, pack=pack, active=act_b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dma_scan_refuses_two_tiles_that_do_not_fit(cuda):
+    """W = 4 at block_n = 8192: one tile fits a block (the hist kernel
+    runs), two do not (the pipelined kernel raises, never falls back)."""
+    codes, q, _ = _scan_inputs(cuda, 1, 10000, 4, 3, 0.0)
+    before = hamming_topk_hist_dma.launches
+    hd, hi = hamming_topk_hist(codes, q, 16, 8192, None, "16")
+    pd, pi = hamming_topk_hist_plain(codes, q, 16, 8192, None, "16")
+    assert torch.equal(hd, pd) and torch.equal(hi, pi)
+    with pytest.raises(ValueError, match="shared memory"):
+        hamming_topk_hist_dma(codes, q, 16, 8192, None, "16")
+    assert hamming_topk_hist_dma.launches == before
+
+
+@pytest.mark.parametrize("n,w,b", [
+    (1_060_000, 1, 32),        # the serving shape
+    (20011, 2, 7),
+    (300, 7, 1),
+    (5000, 4, 70),             # three query chunks, the last of 6
+    (1, 1, 3),
+])
+def test_distance_kernels_vs_plain(cuda, n, w, b):
+    """Kernels 6 and 7 equal their plain versions bit for bit, and row b of
+    the batch equals the single-query kernel on query b."""
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.from_numpy(a.view(np.int32)).to(cuda)  # noqa: E731
+    codes = t(rng.integers(0, 2**32, (n, w), dtype=np.uint32))
+    qs = t(rng.integers(0, 2**32, (b, w), dtype=np.uint32))
+    before = (hamming_distance.launches, hamming_distance_batch.launches)
+    got = hamming_distance_batch(codes, qs)
+    rows = [hamming_distance(codes, qs[i]) for i in range(b)]
+    torch.cuda.synchronize()
+    assert (hamming_distance.launches, hamming_distance_batch.launches) == (
+        before[0] + b, before[1] + 1)
+    assert got.shape == (b, n) and got.dtype == torch.int32
+    assert torch.equal(got, hamming_distance_batch_plain(codes, qs))
+    for i in range(b):
+        assert torch.equal(rows[i], hamming_distance_plain(codes, qs[i]))
+        assert torch.equal(rows[i], got[i])
+    assert torch.equal(ops.hamming_distances_batch(codes, qs), got)
 
 
 @pytest.mark.parametrize("mode", ["scan", "probe"])

@@ -70,28 +70,38 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     (a 'meta' tensor stands in for a device with no kernel here)."""
     from repro_torch.kernels.bilinear_hash import (bilinear_hash,
                                                    bilinear_hash_seeded)
-    from repro_torch.kernels.hamming import (hamming_topk_fused,
-                                             hamming_topk_hist)
+    from repro_torch.kernels.hamming import (hamming_distance,
+                                             hamming_distance_batch,
+                                             hamming_topk_fused,
+                                             hamming_topk_hist,
+                                             hamming_topk_hist_dma)
     from repro_torch.kernels.lbh_grad import lbh_chain
-    kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
-               lbh_chain, hamming_topk_fused)
+    scans = (hamming_topk_hist, hamming_topk_fused, hamming_topk_hist_dma)
+    kernels = (bilinear_hash_seeded, bilinear_hash, lbh_chain,
+               hamming_distance, hamming_distance_batch, *scans)
     before = [k.launches for k in kernels]
     x = torch.zeros(5, 3)
     u = torch.zeros(3, 20)
     p, r = torch.zeros(5), torch.zeros(5, 5)
     assert bilinear_hash_seeded(x, [1], 20).shape == (1, 5, 1)
     codes = torch.zeros(1, 5, 1, dtype=torch.int32)
-    for scan in (hamming_topk_hist, hamming_topk_fused):
+    for scan in scans:
         assert scan(codes, codes[:, :2], 3, 8)[0].shape == (1, 1, 2, 3)
+    assert hamming_distance(codes[0], codes[0, 0]).shape == (5,)
+    assert hamming_distance_batch(codes[0], codes[0, :2]).shape == (2, 5)
     assert bilinear_hash(x, u, u).shape == (5, 1)
     assert lbh_chain(p, p, r)[0].shape == (5,)
     assert [k.launches for k in kernels] == before
     meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
         bilinear_hash_seeded(x.to("meta"), [1], 20)
-    for scan in (hamming_topk_hist, hamming_topk_fused):
+    for scan in scans:
         with pytest.raises(ValueError, match="unsupported device"):
             scan(codes.to("meta"), codes[:, :2].to("meta"), 3, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hamming_distance(*meta(codes[0], codes[0, 0]))
+    with pytest.raises(ValueError, match="unsupported device"):
+        hamming_distance_batch(*meta(codes[0], codes[0, :2]))
     with pytest.raises(ValueError, match="unsupported device"):
         bilinear_hash(*meta(x, u, u))
     with pytest.raises(ValueError, match="unsupported device"):

@@ -170,6 +170,10 @@ def _scan_vs_jax(codes, qs, l, active=None, packs=PACKS, block_n=4096,
     paths = {f"ops_{sel}_p{p}": tops.hamming_topk_grouped(
         ct, qt, l, pack=p, active=at, block_n=block_n, select=sel)
         for p in packs for sel in ("hist", "argmin")}
+    for p in packs:
+        paths[f"ops_hist_dma_p{p}"] = tops.hamming_topk_grouped(
+            ct, qt, l, pack=p, active=at, block_n=block_n, select="hist",
+            dma=True)
     paths["search_hist"] = tsearch.hamming_topk_grouped_hist(ct, qt, l, at)
     paths["search_lax"] = tsearch.hamming_topk_grouped(ct, qt, l,
                                                        select="argmin",
@@ -267,10 +271,12 @@ def test_scan_active_masks(kind):
     assert ((d == tsearch.DIST_SENTINEL) == (i < 0)).all()
 
 
+@pytest.mark.parametrize("dma", [False, True])
 @pytest.mark.parametrize("pack", PACKS)
-def test_block_local_layout_equals_jax_kernel(pack):
+def test_block_local_layout_equals_jax_kernel(pack, dma):
     """Before the merge, at equal block_n: the same (G, grid, B, l) block
-    candidates, dtypes and sentinel slots as the Pallas kernel."""
+    candidates, dtypes and sentinel slots as the Pallas kernel, with
+    dma=False (kernel 2's wrapper) and dma=True (kernel 3's)."""
     rng = np.random.default_rng(6)
     g, n, w, b, l, bn = 2, 600, 1, 8, 40, 256
     codes = rng.integers(0, 2**32, (g, n, w), dtype=np.uint32)
@@ -282,10 +288,11 @@ def test_block_local_layout_equals_jax_kernel(pack):
     aj = jnp.asarray(np.pad(active, (0, n_pad - n))[:, None])
     jd, ji = jhamming.hamming_topk_hist_kernel(
         cj, jnp.asarray(qs), l, n, active=aj, block_n=bn, interpret=True,
-        pack=pack)
-    td, ti = thamming.hamming_topk_hist(
-        from_numpy_u32(codes), from_numpy_u32(qs), l, bn,
-        torch.from_numpy(active), pack)
+        pack=pack, dma=dma)
+    scan = thamming.hamming_topk_hist_dma if dma else \
+        thamming.hamming_topk_hist
+    td, ti = scan(from_numpy_u32(codes), from_numpy_u32(qs), l, bn,
+                  torch.from_numpy(active), pack)
     assert str(td.dtype).split(".")[-1] == str(np.asarray(jd).dtype)
     assert str(ti.dtype).split(".")[-1] == str(np.asarray(ji).dtype)
     assert np.array_equal(td.numpy(), np.asarray(jd))
@@ -375,6 +382,102 @@ def test_select_and_pack_env(monkeypatch):
         tsearch.env_cand_pack("4")
     with pytest.raises(ValueError):
         tsearch.env_fused_select("heap")
+
+
+# -- distance kernels and the pipelined scan ---------------------------------
+
+@pytest.mark.parametrize("n,w", [(1000, 1), (4096, 4), (100, 2), (1, 1),
+                                 (2049, 7), (300, 1), (257, 3), (11, 2)])
+def test_hamming_distances_vs_jax(n, w):
+    """ops.hamming_distances (kernel 7's route) against JAX's, at the
+    shapes of tests/test_kernels.py and n that no block size divides."""
+    rng = np.random.default_rng(n + w)
+    codes = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    q = rng.integers(0, 2**32, (w,), dtype=np.uint32)
+    want = np.asarray(jops.hamming_distances(jnp.asarray(codes),
+                                             jnp.asarray(q)))
+    ct, qt = from_numpy_u32(codes), from_numpy_u32(q)
+    got = tops.hamming_distances(ct, qt)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(thamming.hamming_distance_plain(ct, qt), got)
+    assert torch.equal(tref.hamming_distance_ref(ct, qt), got)
+
+
+@pytest.mark.parametrize("n,b,w", [(1000, 1, 1), (512, 32, 2), (100, 5, 2),
+                                   (2049, 9, 4), (300, 40, 1)])
+def test_hamming_distances_batch_vs_jax(n, b, w):
+    """ops.hamming_distances_batch (kernel 6's route) against JAX's, (B, n)
+    with row b equal to the single-query distances of query b."""
+    rng = np.random.default_rng(n + b)
+    codes = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    qs = rng.integers(0, 2**32, (b, w), dtype=np.uint32)
+    want = np.asarray(jops.hamming_distances_batch(jnp.asarray(codes),
+                                                   jnp.asarray(qs)))
+    ct, qt = from_numpy_u32(codes), from_numpy_u32(qs)
+    got = tops.hamming_distances_batch(ct, qt)
+    assert got.dtype == torch.int32 and got.shape == (b, n)
+    assert np.array_equal(got.numpy(), want)
+    for i in range(b):
+        assert torch.equal(got[i], tops.hamming_distances(ct, qt[i]))
+
+
+@pytest.mark.parametrize("pack", PACKS)
+@pytest.mark.parametrize("case", ["w1", "w1_active", "w2", "w2_active",
+                                  "l_exceeds_n"])
+def test_dma_scan_vs_jax(pack, case):
+    """ops.hamming_topk_grouped(dma=True) against JAX's with dma=True (the
+    Pallas double-buffered kernel in interpret mode): identical (distance,
+    id) pairs after the merge, and identical to dma=False."""
+    rng = np.random.default_rng(len(case))
+    g, n, b, l = 2, 700, 5, 40
+    w = 2 if case.startswith("w2") else 1
+    if case == "l_exceeds_n":
+        n, l = 100, 300
+    codes = rng.integers(0, 2**32, (g, n, w), dtype=np.uint32)
+    codes[..., 0] &= np.uint32(0xF)                        # ties
+    qs = rng.integers(0, 2**32, (g, b, w), dtype=np.uint32)
+    active = (rng.random(n) < 0.6) if case.endswith("active") else None
+    aj = None if active is None else jnp.asarray(active)
+    at = None if active is None else torch.from_numpy(active)
+    jd, ji = (np.asarray(a) for a in jops.hamming_topk_grouped(
+        jnp.asarray(codes), jnp.asarray(qs), l, block_n=256, dma=True,
+        active=aj, pack=pack))
+    ct, qt = from_numpy_u32(codes), from_numpy_u32(qs)
+    td, ti = tops.hamming_topk_grouped(ct, qt, l, block_n=256, dma=True,
+                                       active=at, pack=pack)
+    assert np.array_equal(td.numpy(), jd) and np.array_equal(ti.numpy(), ji)
+    hd, hi = tops.hamming_topk_grouped(ct, qt, l, block_n=256, active=at,
+                                       pack=pack)
+    assert torch.equal(td, hd) and torch.equal(ti, hi)
+    if case == "l_exceeds_n":
+        assert (ti.numpy()[..., n:] == -1).all()
+
+
+@pytest.mark.parametrize("n,l", [(1500, 40), (700, 256), (90, 60)])
+def test_unfused_route_equals_fused_scan(n, l):
+    """The unfused route of benchmarks/serving_scan.py (the full (B, n)
+    distance matrix per table, then the lexicographic smallest l) equals
+    the fused scan, lists and ids alike, for both hist kernels' routes."""
+    rng = np.random.default_rng(n)
+    g, b = 3, 6
+    codes = rng.integers(0, 2**32, (g, n, 1), dtype=np.uint32)
+    codes[..., 0] &= np.uint32(0x3F)                       # ties
+    qs = rng.integers(0, 2**32, (g, b, 1), dtype=np.uint32)
+    ct, qt = from_numpy_u32(codes), from_numpy_u32(qs)
+    ids = torch.arange(n, dtype=torch.int32).expand(b, n)
+    unfused = [tsearch.lex_smallest(tops.hamming_distances_batch(ct[i],
+                                                                 qt[i]),
+                                    ids, l) for i in range(g)]
+    ud = torch.stack([d for d, _ in unfused])
+    ui = torch.stack([i for _, i in unfused])
+    for dma in (False, True):
+        fd, fi = tops.hamming_topk_grouped(ct, qt, l, block_n=256, dma=dma)
+        assert torch.equal(ud, fd) and torch.equal(ui, fi)
+    jd, ji = jsearch.hamming_topk_grouped_hist(jnp.asarray(codes),
+                                               jnp.asarray(qs), l)
+    assert np.array_equal(ud.numpy(), np.asarray(jd))
+    assert np.array_equal(ui.numpy(), np.asarray(ji))
 
 
 def test_hamming_distance_ref():
