@@ -112,6 +112,18 @@ def device_profile(torch, fn):
     return sum(ms for ms, _ in kernels.values()), kernels
 
 
+def ptxas_lines(log: str, fragment: str):
+    """The -Xptxas -v lines of the kernels whose mangled name holds
+    fragment: registers, spills, one line per instantiation."""
+    out, hit = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            hit = fragment in line
+        elif hit and ("registers" in line or "spill" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def kernel_device_ms(kernels: dict, fragment: str):
     """Mean device ms per launch of the kernel whose name holds fragment
     (None: the profiler did not see it)."""
@@ -343,6 +355,9 @@ def main() -> int:
     # phase 13 runs every case again through the pipelined kernel
     scan_cases = [
         ("main", codes_k, q, None, packs_all, ("hist",)),
+        ("one query, one table (the LBH query_scan's B = 1)",
+         codes_k[:1].contiguous(), q[:1, :1].contiguous(), None, packs_all,
+         both),
         ("10% tombstoned", codes_k, q, ~dead, ("16",), ("hist",)),
         ("base, 5% tombstoned", codes_k, q, live5, packs_all, both),
         *[(f"delta of {rows} rows", codes_k[:, -rows:].contiguous(), q,
@@ -356,27 +371,65 @@ def main() -> int:
         scan_case(label, c, qc, SCAN_L, active=act, packs=packs,
                   selects=selects)
     popc_s = POPC_PER_CLK_SM * sms * max_clock_mhz * 1e6
-    grid = -(-n // bn)
-    d_dtype, i_dtype, _ = cand_encoding("16", w_words, bn)
-    cand_bytes = TABLES * grid * BATCH * l_k * (
-        torch.empty(0, dtype=d_dtype).element_size()
-        + torch.empty(0, dtype=i_dtype).element_size())
 
-    def scan_bound(live_rows, active_bytes):
-        """(bound ms, bound_by): codes, active and queries read once,
-        candidates written once; one popcount per live row, query and
-        word, 16 per clock per SM."""
-        t_bytes = (TABLES * (n + BATCH) * w_words * 4 + active_bytes
+    def scan_bound(groups, rows, nq, l, live_rows, active_bytes):
+        """(bound ms, bound_by) of one block-local scan: codes, active and
+        queries read once, the pack-16 candidates written once; one
+        popcount per live row, query and word, 16 per clock per SM."""
+        rb = ops._block_rows(rows, 4096)
+        d_dtype, i_dtype, _ = cand_encoding("16", w_words, rb)
+        cand_bytes = groups * -(-rows // rb) * nq * min(l, rb) * (
+            torch.empty(0, dtype=d_dtype).element_size()
+            + torch.empty(0, dtype=i_dtype).element_size())
+        t_bytes = (groups * (rows + nq) * w_words * 4 + active_bytes
                    + cand_bytes) / HBM_BYTES_S
-        t_ops = TABLES * live_rows * BATCH * w_words / popc_s
+        t_ops = groups * live_rows * nq * w_words / popc_s
         return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                            else "bytes")
 
-    scan_ms = cuda_ms(torch, lambda: hamming_topk_hist(codes_k, q, l_k, bn,
-                                                       None, "16"), 20)
+    # the redesigned kernels 2 and 5 at the shapes of their paths: CUDA
+    # events over back-to-back calls, the profiler's device time, the bound
+    act5 = live5.to(torch.int32)
+    d20 = (codes_k[:, -20_000:].contiguous(), act5[-20_000:].contiguous())
+    shapes = {
+        "serving": (codes_k, q, SCAN_L, None),
+        "base, 5% tombstoned": (codes_k, q, SCAN_L, act5),
+        "LBH query_scan": (codes_k[:1].contiguous(), q[:1, :1].contiguous(),
+                           LBH_SCAN_L, None),
+        "delta of 20000 rows, 5% tombstoned": (d20[0], q, SCAN_L, d20[1]),
+    }
+    scan_times = {}
+    for shape, (c, qc, l, act) in shapes.items():
+        rows = c.shape[1]
+        rb = ops._block_rows(rows, 4096)
+        live = rows if act is None else int(act.sum())
+        bound = scan_bound(c.shape[0], rows, qc.shape[1], l, live,
+                           0 if act is None else 4 * rows)
+        for name, kern, frag in (
+                ("hamming_topk_hist", hamming_topk_hist, "topk_hist_kernel"),
+                ("hamming_topk_fused", hamming_topk_fused,
+                 "topk_fused_kernel")):
+            def call(kern=kern, c=c, qc=qc, l=l, act=act, rb=rb):
+                return kern(c, qc, min(l, rb), rb, act, "16")
+            ev = cuda_ms(torch, call, 20)
+            _, prof = device_profile(torch, lambda: [call() for _ in range(5)])
+            dev_ms = kernel_device_ms(prof, frag)
+            check(dev_ms is not None, f"the profiler saw {name} ({shape})")
+            scan_times[(name, shape)] = dict(events_ms=ev, device_ms=dev_ms,
+                                             bound_ms=bound[0],
+                                             bound_by=bound[1])
+            print(f"{name} at {shape} (G={c.shape[0]}, n={rows}, "
+                  f"B={qc.shape[1]}, l={min(l, rb)}, pack 16): CUDA events "
+                  f"{ev} ms, device time (torch.profiler) {dev_ms} ms; bound "
+                  f"{bound[0]} ms ({bound[1]})")
+    for lib, frag in ((SCAN_LIB, "topk_hist_kernel"),
+                      (FUSED_LIBRARY, "topk_fused_kernel")):
+        for line in ptxas_lines(_build.build_log(lib), frag):
+            print(f"  ptxas {lib}: {line}")
+    scan_ms = scan_times[("hamming_topk_hist", "serving")]["events_ms"]
     scan_plain_ms = cuda_ms(torch, lambda: hamming_topk_hist_plain(
         codes_k, q, l_k, bn, None, "16"), 3)
-    scan_bound_ms, scan_bound_by = scan_bound(n, 0)
+    scan_bound_ms, scan_bound_by = scan_bound(TABLES, n, BATCH, SCAN_L, n, 0)
     records["hamming_topk_hist"] = dict(
         name="hamming_topk_hist", route="cuda",
         source="src/repro_torch/kernels/csrc/hamming_topk_hist.cu",
@@ -384,31 +437,21 @@ def main() -> int:
         max_abs_err=scan_err["hist"], ms=scan_ms, plain_ms=scan_plain_ms,
         bound_ms=scan_bound_ms, bound_by=scan_bound_by, library_ms=None)
     # kernel 5 at the streaming base's shape: ~1M rows, 5% tombstoned
-    act5 = live5.to(torch.int32)
-    fused_ms = cuda_ms(torch, lambda: hamming_topk_fused(
-        codes_k, q, l_k, bn, act5, "16"), 20)
+    base5 = ("hamming_topk_fused", "base, 5% tombstoned")
+    fused_ms = scan_times[base5]["events_ms"]
     fused_plain_ms = cuda_ms(torch, lambda: hamming_topk_fused_plain(
         codes_k, q, l_k, bn, act5, "16"), 3)
-    hist5_ms = cuda_ms(torch, lambda: hamming_topk_hist(
-        codes_k, q, l_k, bn, act5, "16"), 20)
-    _, prof = device_profile(torch, lambda: [hamming_topk_fused(
-        codes_k, q, l_k, bn, act5, "16") for _ in range(5)])
-    fused_dev_ms = kernel_device_ms(prof, "topk_fused_kernel")
-    fused_bound_ms, fused_bound_by = scan_bound(int(live5.sum()), 4 * n)
-    print(f"argmin kernel at the base shape (G={TABLES}, n={n}, 5% "
-          f"tombstoned, B={BATCH}, l={l_k}, pack 16): CUDA events "
-          f"{fused_ms} ms, device time (torch.profiler) {fused_dev_ms} ms; "
-          f"plain {fused_plain_ms} ms; bound {fused_bound_ms} ms "
-          f"({fused_bound_by}); the hist kernel on the same inputs "
-          f"{hist5_ms} ms")
+    hist5_ms = scan_times[("hamming_topk_hist", base5[1])]["events_ms"]
+    print(f"argmin kernel at the base shape: plain {fused_plain_ms} ms; "
+          f"{fused_ms / hist5_ms} x the hist kernel on the same inputs")
     records["hamming_topk_fused"] = dict(
         name="hamming_topk_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/hamming_topk_fused.cu",
         replaces="src/repro/kernels/hamming.py:207",
         max_abs_err=scan_err["argmin"], ms=fused_ms,
-        plain_ms=fused_plain_ms, bound_ms=fused_bound_ms,
-        bound_by=fused_bound_by, library_ms=None)
-    del codes_p, act5
+        plain_ms=fused_plain_ms, bound_ms=scan_times[base5]["bound_ms"],
+        bound_by=scan_times[base5]["bound_by"], library_ms=None)
+    del codes_p, act5, d20
     torch.cuda.synchronize()
 
     all_kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with nvcc for ``sm_90a`` into ``build/kernels/`` at the repository root,
-at first use.  The library's file name carries a hash of its source and
-flags, so an edited source builds anew and an unchanged one is reused.
+at first use.  The library's file name carries a hash of its source, of
+every header under ``csrc/`` and of the flags, so an edited source or
+header builds anew and an unchanged one is reused.
 No ``--use_fast_math``: the hash kernel's generator needs IEEE logf/cosf.
 A failed build raises with nvcc's output; nothing falls back.
 """
@@ -39,9 +40,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -14,10 +14,12 @@ t = min(l, live rows in the block), ties to the lowest row:
   gives the same output from persistent blocks that prefetch the next code
   tile with cp.async; it replaces ``hamming_topk_hist_kernel`` with
   dma=True;
-- ``hamming_topk_fused`` (csrc/hamming_topk_fused.cu) selects by l rounds
-  of masked argmin and emits in (distance, row) order, slots past t
-  carrying (pack sentinel, 0); it replaces ``hamming_topk_fused_kernel``
-  (src/repro/kernels/hamming.py:207).
+- ``hamming_topk_fused`` (csrc/hamming_topk_fused.cu) runs the same
+  select and emits in (distance, row) order by a stable counting sort of
+  the kept rows, slots past t carrying (pack sentinel, 0): the order of the
+  TPU kernel ``hamming_topk_fused_kernel``
+  (src/repro/kernels/hamming.py:207), which takes l rounds of masked
+  argmin to reach it.
 
 The merge that turns block-local candidates into the global top-l lives in
 ``kernels.ops`` and is the same for all three.  The unfused distances:
@@ -209,7 +211,7 @@ hamming_topk_hist_dma.launches = 0
 
 def hamming_topk_fused_plain(codes, queries, l_k: int, block_n: int,
                              active=None, pack: str = "none"):
-    """Plain version of the masked-argmin kernel, all blocks at once: a
+    """Plain version of the distance-order kernel, all blocks at once: a
     stable sort of each block's distance tile (ties to the lowest row),
     cut to l_k; slots past the live rows carry (pack sentinel, 0), as the
     TPU kernel's argmin over an all-sentinel tile gives.  Same arguments
@@ -225,10 +227,11 @@ def hamming_topk_fused_plain(codes, queries, l_k: int, block_n: int,
 
 def hamming_topk_fused(codes, queries, l_k: int, block_n: int, active=None,
                        pack: str = "16"):
-    """Block-local fused scan + l_k rounds of masked argmin over G stacked
-    code groups.  Same arguments and output shapes as
-    ``hamming_topk_hist``; the kept rows come in (distance, row) order and
-    the slots past the live rows carry (pack sentinel, 0).
+    """Block-local fused scan + select in (distance, row) order over G
+    stacked code groups (the order of the TPU kernel's l_k rounds of masked
+    argmin).  Same arguments and output shapes as ``hamming_topk_hist``;
+    the kept rows come in (distance, row) order and the slots past the
+    live rows carry (pack sentinel, 0).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``hamming_topk_fused.launches``) or raises.

@@ -86,7 +86,8 @@ def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
     groups.  pack: the kernel's candidate emission width (``"16"``,
     ``"8"``, ``"none"``; None reads REPRO_CAND_PACK); every pack is
     bit-identical after the merge.  select: ``"hist"`` (histogram select,
-    ``hamming_topk_hist``) or ``"argmin"`` (l rounds of masked argmin,
+    ``hamming_topk_hist``) or ``"argmin"`` (the JAX package's l rounds of
+    masked argmin, here the same select emitted in distance order,
     ``hamming_topk_fused``); None reads REPRO_FUSED_SELECT.  dma=True routes
     the hist select through the pipelined kernel
     (``hamming_topk_hist_dma``); argmin ignores it, as in the JAX package.

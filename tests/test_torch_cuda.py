@@ -76,78 +76,107 @@ def test_hash_kernel_vs_plain(cuda, n, d, k, seeds):
     assert (ratios <= 1.0).all(), ratios.max()
 
 
-def _scan_inputs(cuda, g, n, w, b, dead, seed=0):
+def _scan_inputs(cuda, g, n, w, b, dead, seed=0, kind="random"):
+    """Codes, queries and an active mask; kind "ties" repeats one code row
+    (every live row at one distance per query), "dead_block" kills rows
+    4096-8191."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 2**32, (g, n, w), dtype=np.uint32)
     codes[..., 0] &= np.uint32(0x3F)          # heavy ties at the cutoff
+    if kind == "ties":
+        codes[:] = codes[:, :1]
     q = rng.integers(0, 2**32, (g, b, w), dtype=np.uint32)
     act = (rng.random(n) >= dead).astype(np.int32)
+    if kind == "dead_block":
+        act[4096:8192] = 0
     t = lambda a: torch.from_numpy(a.view(np.int32)).to(cuda)  # noqa: E731
     return t(codes), t(q), torch.from_numpy(act).to(cuda)
 
 
-@pytest.mark.parametrize("pack", ["none", "16", "8"])
-@pytest.mark.parametrize("g,n,w,b,l,dead", [
-    (4, 20000, 1, 32, 128, 0.0),
-    (2, 9000, 2, 7, 64, 0.1),
-    (1, 300, 1, 5, 400, 0.0),        # l > n
-    (3, 5000, 4, 3, 4096, 0.5),      # l == block_n
-    (1, 4096, 1, 2, 16, 1.0),        # every row dead
-])
-def test_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
-    codes, q, act = _scan_inputs(cuda, g, n, w, b, dead)
-    bn = ops._block_rows(n, 4096)
+# (g, n, w, b, l, dead, block_n, kind) for the hist and argmin kernels
+SCAN_CASES = [
+    pytest.param(4, 20000, 1, 32, 128, 0.05, 4096, "random",
+                 id="delta-20000-5pct"),
+    pytest.param(2, 9000, 2, 7, 64, 0.1, 4096, "random", id="w2"),
+    pytest.param(1, 300, 1, 5, 400, 0.0, 4096, "random", id="l-gt-n-b5"),
+    pytest.param(3, 5000, 4, 3, 4096, 0.5, 4096, "random",
+                 id="l-eq-block-w4"),
+    pytest.param(1, 4096, 1, 2, 16, 1.0, 4096, "random", id="all-dead"),
+    pytest.param(2, 12288, 1, 9, 40, 0.0, 4096, "dead_block",
+                 id="one-dead-block"),
+    pytest.param(1, 50000, 1, 1, 256, 0.0, 4096, "random", id="b1"),
+    pytest.param(2, 9000, 1, 33, 128, 0.05, 4096, "random", id="b33"),
+    pytest.param(1, 20000, 2, 64, 128, 0.0, 4096, "random", id="b64"),
+    pytest.param(2, 5000, 1, 6, 100, 0.05, 4096, "ties", id="all-tie"),
+    pytest.param(1, 3000, 7, 9, 128, 0.1, 4096, "random", id="w7"),
+    pytest.param(2, 3000, 1, 12, 64, 0.05, 256, "random", id="block256"),
+    pytest.param(1, 1000, 1, 3, 256, 0.0, 256, "random",
+                 id="l-eq-block256"),
+    pytest.param(1, 30000, 2, 10, 200, 0.05, 8192, "random",
+                 id="block8192"),
+]
+
+
+def _kernel_vs_plain(cuda, kern, plain, select, pack, g, n, w, b, l, dead,
+                     block_n, kind):
+    """kern equals plain before the merge, bit for bit; after the merge
+    its route equals the hist route and the CPU plain route."""
+    codes, q, act = _scan_inputs(cuda, g, n, w, b, dead, seed=n + b,
+                                 kind=kind)
+    bn = ops._block_rows(n, block_n)
     l_k = min(l, bn)
-    active = act if dead else None
-    before = hamming_topk_hist.launches
-    kd, ki = hamming_topk_hist(codes, q, l_k, bn, active, pack)
+    active = act if dead or kind == "dead_block" else None
+    before = kern.launches
+    kd, ki = kern(codes, q, l_k, bn, active, pack)
     torch.cuda.synchronize()
-    assert hamming_topk_hist.launches == before + 1
-    pd, pi = hamming_topk_hist_plain(codes, q, l_k, bn, active, pack)
+    assert kern.launches == before + 1
+    pd, pi = plain(codes, q, l_k, bn, active, pack)
     assert kd.dtype == pd.dtype and ki.dtype == pi.dtype
     assert torch.equal(kd, pd) and torch.equal(ki, pi)
-    got = ops.hamming_topk_grouped(codes, q, l, pack=pack,
-                                   active=None if active is None
-                                   else active.bool())
-    want = ops.hamming_topk_grouped(codes.cpu(), q.cpu(), l, pack=pack,
-                                    active=None if active is None
-                                    else active.bool().cpu())
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
+    act_b = None if active is None else active.bool()
+    got = ops.hamming_topk_grouped(codes, q, l, block_n=block_n, pack=pack,
+                                   active=act_b, select=select)
+    hist = ops.hamming_topk_grouped(codes, q, l, block_n=block_n, pack=pack,
+                                    active=act_b, select="hist")
+    want = ops.hamming_topk_grouped(
+        codes.cpu(), q.cpu(), l, block_n=block_n, pack=pack,
+        active=None if act_b is None else act_b.cpu())
+    for a, h, c in zip(got, hist, want):
+        assert torch.equal(a, h) and torch.equal(a.cpu(), c)
 
 
-def test_argmin_kernel_vs_plain(cuda):
-    """The masked-argmin kernel equals its plain version before the merge,
-    bit for bit, for every pack, with tombstones, l > n, W = 2 and 4,
-    l == block_n and all-dead rows; after the merge it equals the hist
-    kernel's output."""
-    cases = [(4, 20000, 1, 32, 128, 0.05), (2, 9000, 2, 7, 64, 0.1),
-             (1, 300, 1, 5, 400, 0.0), (3, 5000, 4, 3, 4096, 0.5),
-             (1, 4096, 1, 2, 16, 1.0), (2, 12288, 1, 9, 40, 0.0)]
-    for g, n, w, b, l, dead in cases:
-        codes, q, act = _scan_inputs(cuda, g, n, w, b, dead, seed=n)
-        if n == 12288:
-            act[4096:8192] = 0               # one all-dead block
-            dead = 1
-        bn = ops._block_rows(n, 4096)
-        l_k = min(l, bn)
-        active = act if dead else None
-        for pack in ("none", "16", "8"):
-            before = hamming_topk_fused.launches
-            kd, ki = hamming_topk_fused(codes, q, l_k, bn, active, pack)
-            torch.cuda.synchronize()
-            assert hamming_topk_fused.launches == before + 1
-            pd, pi = hamming_topk_fused_plain(codes, q, l_k, bn, active,
-                                              pack)
-            assert kd.dtype == pd.dtype and ki.dtype == pi.dtype
-            assert torch.equal(kd, pd) and torch.equal(ki, pi), (n, pack)
-            act_b = None if active is None else active.bool()
-            got = ops.hamming_topk_grouped(codes, q, l, pack=pack,
-                                           active=act_b, select="argmin")
-            want = ops.hamming_topk_grouped(codes, q, l, pack=pack,
-                                            active=act_b, select="hist")
-            assert torch.equal(got[0], want[0])
-            assert torch.equal(got[1], want[1])
+@pytest.mark.parametrize("pack", ["none", "16", "8"])
+@pytest.mark.parametrize("g,n,w,b,l,dead,block_n,kind", SCAN_CASES)
+def test_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead, block_n,
+                              kind):
+    """The hist kernel against its plain version before the merge and the
+    plain scan after it: tombstones, l > n, l == block_n, dead blocks,
+    query counts off the kernel's chunk of 8, all rows tied, W up to 7."""
+    _kernel_vs_plain(cuda, hamming_topk_hist, hamming_topk_hist_plain,
+                     "hist", pack, g, n, w, b, l, dead, block_n, kind)
+
+
+@pytest.mark.parametrize("pack", ["none", "16", "8"])
+@pytest.mark.parametrize("g,n,w,b,l,dead,block_n,kind", SCAN_CASES)
+def test_argmin_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead, block_n,
+                                kind):
+    """The (distance, row)-order kernel against its plain version before
+    the merge, bit for bit, and after the merge the hist kernel's output,
+    on the hist kernel's cases."""
+    _kernel_vs_plain(cuda, hamming_topk_fused, hamming_topk_fused_plain,
+                     "argmin", pack, g, n, w, b, l, dead, block_n, kind)
+
+
+@pytest.mark.parametrize("pack", ["none", "16"])
+@pytest.mark.parametrize("select", ["hist", "argmin"])
+def test_scan_kernels_wide_codes(cuda, pack, select):
+    """W = 8: distances up to 256 no longer fit a byte, so the distance
+    tile holds 16-bit entries (pack 8 cannot carry them and raises)."""
+    kern, plain = ((hamming_topk_hist, hamming_topk_hist_plain)
+                   if select == "hist" else
+                   (hamming_topk_fused, hamming_topk_fused_plain))
+    _kernel_vs_plain(cuda, kern, plain, select, pack, 2, 5000, 8, 9, 64,
+                     0.05, 4096, "random")
 
 
 @pytest.mark.parametrize("pack", ["none", "16", "8"])
@@ -158,6 +187,8 @@ def test_argmin_kernel_vs_plain(cuda):
     (3, 5000, 4, 3, 4096, 0.5),      # l == block_n, W = 4
     (1, 4096, 1, 2, 16, 1.0),        # every row dead
     (2, 1_000_001, 1, 9, 40, 0.0),   # many steps per persistent block
+    (1, 50000, 1, 1, 256, 0.0),      # B = 1: one query split over 8 warps
+    (2, 9000, 1, 33, 128, 0.05),     # B = 33: the last chunk holds one
 ])
 def test_dma_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
     """The pipelined hist kernel equals its plain version and the hist
