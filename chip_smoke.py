@@ -33,6 +33,12 @@ features, 10 classes, from ``--seed``):
   ``core.search.lex_smallest`` (the unfused route, checked against the
   fused scan) and ``ops.hamming_distances`` per query.
 
+Then the widths past the Tiny-1M geometry: ``newsgroups_like(d=26214)``
+(18,846 x 26,215, the paper's second dataset at the width the
+hyperplane-hashing literature reports) through both hash kernels, and
+codes of W = 13 and 32 words through the three scan kernels, each against
+its plain version.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  Every phase that fails stops the run with a
 non-zero exit.  The second-to-last line of its output is the kernels' JSON
@@ -60,6 +66,9 @@ BITS, TABLES, BATCH, SCAN_L = 20, 4, 32, 128
 STREAM_BATCHES, STREAM_QUERIES = 30, 4
 BASE_DELETES, NEW_DELETES = 40_000, 10_000
 LBH_SAMPLE, LBH_STEPS, RADIUS, LBH_SCAN_L = 1000, 150, 4, 256
+# the paper's second dataset at the width the hyperplane-hashing
+# literature reports for 20 Newsgroups (26,214 tf-idf features + bias)
+NG_D = 26_214
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
 # cores; popcount issues 16 results per clock per SM (CUDA programming
 # guide, compute capability 9.0), at the card's maximum SM clock.
@@ -112,6 +121,22 @@ def device_profile(torch, fn):
     return sum(ms for ms, _ in kernels.values()), kernels
 
 
+def profiled_ms(torch, fn, reps: int, fragment: str | None = None):
+    """Device ms per call of fn over reps calls under torch.profiler: the
+    kernels whose name holds fragment, or all device work.  Profiles a
+    second time if the first saw none; None if neither did."""
+    for _ in range(2):
+        busy, kernels = device_profile(
+            torch, lambda: [fn() for _ in range(reps)])
+        if fragment is None and busy > 0:
+            return busy / reps
+        if fragment is not None:
+            ms = kernel_device_ms(kernels, fragment)
+            if ms is not None:
+                return ms
+    return None
+
+
 def ptxas_lines(log: str, fragment: str):
     """The -Xptxas -v lines of the kernels whose mangled name holds
     fragment: registers, spills, one line per instantiation."""
@@ -156,7 +181,7 @@ def main() -> int:
                                             table_seed)
     from repro_torch.core.indexer import HyperplaneIndex, IndexConfig
     from repro_torch.core.tables import SingleHashTable
-    from repro_torch.data.synthetic import tiny1m_like
+    from repro_torch.data.synthetic import newsgroups_like, tiny1m_like
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.bilinear_hash import (
         FACTORS_LIBRARY, LIBRARY as HASH_LIB, bilinear_hash,
@@ -273,9 +298,25 @@ def main() -> int:
     q_hash_plain_ms = cuda_ms(
         torch, lambda: bilinear_hash_seeded_plain(w0, seeds, BITS), 50)
     q_bound_ms, q_bound_by = hash_bound(BATCH)
-    print(f"hash at the query shape ({BATCH} x {d}): kernel {q_hash_ms} ms, "
+    # the device's own time per call (the generation and the product), so
+    # the host's share of the event time shows
+    q_busy, q_prof = device_profile(torch, lambda: [
+        bilinear_hash_seeded(w0, seeds, BITS) for _ in range(50)])
+    check(q_busy > 0, "the profiler saw the query hash's device work")
+    print(f"hash at the query shape ({BATCH} x {d}): kernel {q_hash_ms} ms "
+          f"(CUDA events over back-to-back calls), device time "
+          f"(torch.profiler) {q_busy / 50} ms per call "
+          f"(launches in 50 calls: "
+          f"{json.dumps({k: v[1] for k, v in q_prof.items()})}), "
           f"plain {q_hash_plain_ms} ms, bound {q_bound_ms} ms "
           f"({q_bound_by})")
+    _, f_prof = device_profile(torch, lambda: [
+        bilinear_hash_seeded(x, seeds, BITS) for _ in range(3)])
+    print(f"hash at the fit shape, device time per call (torch.profiler): "
+          f"{sum(v[0] for v in f_prof.values()) / 3} ms, by kernel "
+          + json.dumps({k: v[0] / 3 for k, v in f_prof.items()}))
+    for line in ptxas_lines(_build.build_log(HASH_LIB), "bh_seeded"):
+        print(f"  ptxas {HASH_LIB}: {line}")
     bound_ms, bound_by = hash_bound(n)
     print(f"hash at the fit shape ({n} x {d}): kernel {hash_ms} ms, "
           f"plain {hash_plain_ms} ms, bound {bound_ms} ms ({bound_by})")
@@ -578,8 +619,27 @@ def main() -> int:
                                               STREAM_BATCHES)]
     wq = ws[:BATCH]        # the check set: one micro-batch of normals
     torch.cuda.reset_peak_memory_stats()
+    # kernel 2's launches by segment: ops' reference to the wrapper is
+    # wrapped for the stream to tally the scanned rows (the launch count
+    # stays the wrapper's own); a scan of more than half the base rows is a
+    # base scan, any other a delta (or frozen-delta) scan
+    seg_tally = {"base": [0, 0], "delta": [0, 0]}
+    hist_kernel = ops.hamming_topk_hist
+
+    def tallied_hist(codes, *a, **kw):
+        before = hist_kernel.launches
+        out = hist_kernel(codes, *a, **kw)
+        if hist_kernel.launches != before:
+            rows = codes.shape[1]
+            t = seg_tally["base" if 2 * rows > x_base.shape[0] else "delta"]
+            t[0] += 1
+            t[1] += rows
+        return out
+
+    ops.hamming_topk_hist = tallied_hist
     zero_counts()
     excluded = dict.fromkeys(read_counts(), 0)   # launches of the checks
+    seg_excluded = {"base": [0, 0], "delta": [0, 0]}
     lsm = LSMMultiTableIndex(scfg, device="cuda").fit(x_base)
     print(f"LSM fit over {x_base.shape[0]} rows: {lsm.fit_s:.2f} s")
     svc = AsyncHashQueryService(lsm, mode="scan", scan_l=SCAN_L,
@@ -615,6 +675,7 @@ def main() -> int:
         answers (and any taken mid-compaction) identical to the sync
         query_scan_batch on the same state.  Returns the sync results."""
         c0 = read_counts()
+        t0 = {k: list(v) for k, v in seg_tally.items()}
         live = lsm.active.copy()
         live_ids = lsm.ids_np[live]
         fresh = MultiTableIndex(scfg, device="cuda").fit(
@@ -645,6 +706,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         for k, v in read_counts().items():
             excluded[k] += v - c0[k]
+        for k, v in seg_tally.items():
+            seg_excluded[k][0] += v[0] - t0[k][0]
+            seg_excluded[k][1] += v[1] - t0[k][1]
         return dl, il, rl
 
     # The stream: each insert batch, its deletes, then >= 4 query
@@ -684,7 +748,19 @@ def main() -> int:
     stream_s = time.perf_counter() - t_stream
     dl, il, rl = verify("end of stream")
     torch.cuda.synchronize()
+    ops.hamming_topk_hist = hist_kernel
     stream_launches = {k: v - excluded[k] for k, v in read_counts().items()}
+    by_segment = {}
+    for k, (launches, rows) in seg_tally.items():
+        launches -= seg_excluded[k][0]
+        rows -= seg_excluded[k][1]
+        by_segment[k] = {"launches": launches,
+                         "mean_rows": rows / launches if launches else 0}
+    print("kernel 2 on the streaming path by segment (checks excluded): "
+          + json.dumps(by_segment))
+    check(sum(v["launches"] for v in by_segment.values())
+          == stream_launches["hamming_topk_hist"],
+          "every streaming launch of kernel 2 is tallied to a segment")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     lat = np.asarray(q_lat)
     stream_stats = {
@@ -835,11 +911,11 @@ def main() -> int:
         return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                            else "bytes")
 
-    _, prof = device_profile(torch, lambda: [bilinear_hash(x, u0, v0)
-                                             for _ in range(5)])
-    fh_dev_ms = kernel_device_ms(prof, "bilinear_hash_kernel")
+    fh_dev_ms = profiled_ms(torch, lambda: bilinear_hash(x, u0, v0), 5,
+                            "bilinear_hash_kernel")
     print(f"factor hash at the fit shape, device time of the kernel "
-          f"(torch.profiler): {fh_dev_ms} ms")
+          f"(torch.profiler): "
+          f"{'not measured' if fh_dev_ms is None else fh_dev_ms} ms")
     fh_bound, fh_bound_by = factor_hash_bound(n)
     q_fh_bound, q_fh_bound_by = factor_hash_bound(BATCH)
     print(f"factor hash at the fit shape ({n} x {d}, k {BITS}): kernel "
@@ -1223,8 +1299,102 @@ def main() -> int:
     print(f"scan + merge of {TABLES} tables x {BATCH} queries, l {SCAN_L}, "
           f"ms per call (CUDA events): " + json.dumps(route_ms))
 
-    # -- 14. times ----------------------------------------------------------
-    phase("14 times")
+    del codes_s, q_s, ids_n
+
+    # -- 14. wide features: kernels 1 and 4 on newsgroups_like(d=26214) ----
+    phase("14 wide features: kernels 1 and 4 at d = 26,215")
+    t0 = time.perf_counter()
+    ng = newsgroups_like(d=NG_D, seed=args.seed)
+    ng_n, ng_d = ng.x.shape
+    xg = torch.from_numpy(ng.x).to(dev)
+    print(f"corpus: newsgroups-like {ng_n} x {ng_d} float32 "
+          f"({ng.x.nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del ng
+    ng_seeds = [table_seed(1, t) for t in range(TABLES)]
+    ng_factors = [seeded_projections(s_, ng_d, BITS, dev) for s_ in ng_seeds]
+    ug, vg = ng_factors[0]
+
+    def wide_bound(tables):
+        """(bound ms, bound_by) of hashing newsgroups into `tables`."""
+        t_bytes = (ng_n * ng_d * 4 + tables * ng_n * w_words * 4
+                   + (2 * ng_d * BITS * 4 if tables == 1 else 0)) / HBM_BYTES_S
+        t_ops = 4 * ng_n * ng_d * BITS * tables / FP32_FLOP_S
+        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                           else "bytes")
+
+    for name, kern, plain, factors_g in (
+            ("bilinear_hash_seeded",
+             lambda: bilinear_hash_seeded(xg, ng_seeds, BITS),
+             lambda: bilinear_hash_seeded_plain(xg, ng_seeds, BITS),
+             ng_factors),
+            ("bilinear_hash", lambda: bilinear_hash(xg, ug, vg)[None],
+             lambda: bilinear_hash_plain(xg, ug, vg)[None], [(ug, vg)])):
+        got = kern()
+        torch.cuda.synchronize()
+        r = sign_flip_ratios(xg, factors_g, got, plain())
+        print(f"{name} at d = {ng_d}: {r.numel()} of "
+              f"{len(factors_g) * ng_n * BITS} bits differ from the plain "
+              f"version; largest |proj| / rounding bound among them: "
+              f"{r.max().item() if r.numel() else 0.0:.4f}")
+        check(bool((r <= 1.0).all()),
+              f"{name} at d = {ng_d}: every differing bit lies within the "
+              f"near-zero bound")
+        k_ms = cuda_ms(torch, kern, 5)
+        p_ms = cuda_ms(torch, plain, 2)
+        dev_t = profiled_ms(torch, kern, 3)
+        b_ms, b_by = wide_bound(len(factors_g))
+        print(f"{name} at {ng_n} x {ng_d}, k {BITS}, {len(factors_g)} "
+              f"table(s): kernel {k_ms} ms (CUDA events), device time "
+              f"{'not measured' if dev_t is None else dev_t} ms "
+              f"(torch.profiler), plain {p_ms} ms, bound {b_ms} ms ({b_by})")
+        del got, r
+    del xg, ng_factors, ug, vg
+    torch.cuda.empty_cache()
+
+    # -- 15. wide codes: kernels 2, 5 and 3 at W = 13 and 32 ---------------
+    phase("15 wide codes: kernels 2, 5 and 3 at W = 13 and 32")
+    wrng = np.random.default_rng(args.seed + 3)
+
+    def as_dev(a):
+        return torch.from_numpy(a.view(np.int32)).to(dev)
+
+    for wv in (13, 32):
+        rows = 100_000
+        codes_w = as_dev(wrng.integers(0, 2**32, (2, rows, wv),
+                                       dtype=np.uint32))
+        q_w = as_dev(wrng.integers(0, 2**32, (2, BATCH, wv), dtype=np.uint32))
+        act_w = torch.from_numpy(wrng.random(rows) >= 0.05).to(dev)
+        scan_case(f"W={wv}, 5% tombstoned", codes_w, q_w, SCAN_L,
+                  active=act_w, packs=("none", "16"),
+                  selects=("hist", "argmin", "hist_dma"))
+        # l = block_n at the largest block
+        act_i = act_w.to(torch.int32)
+        for name, kern, plain in (
+                ("hist", hamming_topk_hist, hamming_topk_hist_plain),
+                ("argmin", hamming_topk_fused, hamming_topk_fused_plain),
+                ("hist_dma", hamming_topk_hist_dma,
+                 hamming_topk_hist_plain)):
+            kd, ki = kern(codes_w, q_w[:, :9].contiguous(), 8192, 8192, act_i,
+                          "16")
+            pd, pi = plain(codes_w, q_w[:, :9].contiguous(), 8192, 8192,
+                           act_i, "16")
+            check(torch.equal(kd, pd) and torch.equal(ki, pi),
+                  f"W={wv} {name}: l = block_n = 8192 equals the plain "
+                  f"version")
+        times = {}
+        for name, kern in (("hist", hamming_topk_hist),
+                           ("argmin", hamming_topk_fused),
+                           ("hist_dma", hamming_topk_hist_dma)):
+            times[name] = cuda_ms(torch, lambda kern=kern: kern(
+                codes_w, q_w, SCAN_L, 4096, act_i, "16"), 10)
+        print(f"W={wv} (G=2, n={rows}, B={BATCH}, l={SCAN_L}, pack 16, 5% "
+              f"tombstoned), l = block_n = 8192 identical for all three; ms "
+              f"per call (CUDA events): " + json.dumps(times))
+        del codes_w, q_w, act_w, act_i
+
+    # -- 16. times ----------------------------------------------------------
+    phase("16 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []

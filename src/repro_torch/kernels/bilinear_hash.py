@@ -9,7 +9,11 @@ codes = pack( sgn((X U) .* (X V)) ), LSB-first, bits past k set to 0.
 - ``bilinear_hash_seeded`` (csrc/bilinear_hash_seeded.cu) hashes for G
   tables whose U_g / V_g are generated from each table's 32-bit seed; it
   replaces ``bilinear_hash_seeded_kernel`` (same file, :125): it
-  regenerates the factors on the card and reads x once for all G tables.
+  generates the factors on the card once per call and reads x once for
+  all G tables.
+
+Both run the d-tiled product of ``csrc/bilinear_product.cuh``, whose
+shared memory does not depend on d: any d >= 1 and any k >= 1 launch.
 """
 from __future__ import annotations
 
@@ -24,13 +28,11 @@ from repro_torch.utils.bits import n_words
 
 LIBRARY = "bilinear_hash_seeded"
 _SIGNATURES = {
-    "bh_seeded_rows_per_block": (ctypes.c_int, [ctypes.c_int]),
     "bh_seeded_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 FACTORS_LIBRARY = "bilinear_hash"
 _FACTORS_SIGNATURES = {
-    "bh_rows_per_block": (ctypes.c_int, [ctypes.c_int]),
     "bh_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
@@ -70,10 +72,9 @@ def bilinear_hash(x: torch.Tensor, u: torch.Tensor,
     out = torch.empty((n, n_words(k)), dtype=torch.int32, device=x.device)
     if n == 0 or k == 0:
         return out
+    if d == 0:
+        raise ValueError("x has no features (d = 0)")
     lib = _build.load(FACTORS_LIBRARY, _FACTORS_SIGNATURES)
-    if lib.bh_rows_per_block(d) == 0:
-        raise ValueError(f"d = {d} is too wide for the hash kernel's "
-                         f"shared-memory row tile")
     with torch.cuda.device(x.device):
         err = lib.bh_launch(x.data_ptr(), u.data_ptr(), v.data_ptr(),
                             out.data_ptr(), n, d, k,
@@ -94,6 +95,24 @@ def seeds_as_int32(seeds) -> list[int]:
         s = int(s) & 0xFFFFFFFF
         out.append(s - (1 << 32) if s >= 1 << 31 else s)
     return out
+
+
+# the seed lists already on a card: (device, seeds as int32) -> tensor
+_SEEDS_ON_DEVICE: dict = {}
+_SEEDS_KEPT = 64
+
+
+def seeds_on_device(seeds, device) -> torch.Tensor:
+    """The (G,) int32 tensor of ``seeds`` on ``device``, copied there once
+    per seed list, so a query batch's hash makes no host-to-device copy."""
+    key = (device, tuple(seeds_as_int32(seeds)))
+    t = _SEEDS_ON_DEVICE.get(key)
+    if t is None:
+        if len(_SEEDS_ON_DEVICE) >= _SEEDS_KEPT:
+            _SEEDS_ON_DEVICE.clear()
+        t = torch.tensor(key[1], dtype=torch.int32, device=device)
+        _SEEDS_ON_DEVICE[key] = t
+    return t
 
 
 def bilinear_hash_seeded_plain(x: torch.Tensor, seeds, k: int):
@@ -123,15 +142,13 @@ def bilinear_hash_seeded(x: torch.Tensor, seeds, k: int) -> torch.Tensor:
     n, d = x.shape
     g = len(seeds)
     out = torch.empty((g, n, n_words(k)), dtype=torch.int32, device=x.device)
-    if n == 0 or g == 0:
+    if n == 0 or g == 0 or k == 0:
         return out
+    if d == 0:
+        raise ValueError("x has no features (d = 0)")
     lib = _build.load(LIBRARY, _SIGNATURES)
-    if lib.bh_seeded_rows_per_block(d) == 0:
-        raise ValueError(f"d = {d} is too wide for the hash kernel's "
-                         f"shared-memory row tile")
     with torch.cuda.device(x.device):
-        seeds_dev = torch.tensor(seeds_as_int32(seeds), dtype=torch.int32,
-                                 device=x.device)
+        seeds_dev = seeds_on_device(seeds, x.device)
         err = lib.bh_seeded_launch(
             x.data_ptr(), seeds_dev.data_ptr(), out.data_ptr(), n, d, k, g,
             torch.cuda.current_stream(x.device).cuda_stream)

@@ -19,7 +19,12 @@
 //      segment of the row block) and builds each warp's histogram of its
 //      segment from the tile: one 16-bit counter per (bin, lane), bumped by
 //      an atomic add whose result nothing waits for and which no other
-//      lane's counter shares; the 32 copies then sum to the segment's bins;
+//      lane's counter shares; the 32 copies then sum to the segment's bins.
+//      Wide codes, whose 32 copies of 32 W + 2 bins do not fit beside the
+//      tile (W >= 13 at block_n >= 2048), take the second instantiation
+//      (kWide): one 32-bit counter per (bin, warp), bumped by a shared
+//      atomicAdd, which is the segment's bins itself.  The counts, and so
+//      everything after them, are the same;
 //   C. sums the segments' bins to the query's histogram, finds the cutoff
 //      r (the smallest distance whose running count reaches t = min(l,
 //      live rows)), less = count(d < r) and need = t - less, and places
@@ -70,13 +75,15 @@ __host__ __device__ inline size_t align16(size_t x) {
 // for itself: the distance tile [bq][n_units] of unit_bytes each, the
 // segments' bins [kWarps][bins] int, the chunk's queries [bq][w] uint32,
 // the kept rows [bq][l_k] uint16 and the per-lane counters
-// [kWarps][bins][16] uint32 (two lanes' 16-bit counters a word).
+// [kWarps][bins][16] uint32 (two lanes' 16-bit counters a word), or with
+// wide codes [kWarps][bins] uint32 (the distance-order emission's running
+// slots; the counters are the segments' bins).
 struct Layout {
   size_t tile, seg, qs, ids, hist, total;
 };
 
 __host__ __device__ inline Layout layout(int w, int block_n, int bq, int l_k,
-                                         size_t head) {
+                                         size_t head, bool wide) {
   const size_t n_units = static_cast<size_t>((block_n + 127) / 128) * 32;
   const size_t unit_bytes = byte_entries(w) ? 4 : 8;
   const size_t bins = 32 * static_cast<size_t>(w) + 2;
@@ -86,18 +93,33 @@ __host__ __device__ inline Layout layout(int w, int block_n, int bq, int l_k,
   s.qs = align16(s.seg + kWarps * bins * 4);
   s.ids = align16(s.qs + bq * static_cast<size_t>(w) * 4);
   s.hist = align16(s.ids + bq * static_cast<size_t>(l_k) * 2);
-  s.total = s.hist + kWarps * bins * 32 * 2;
+  s.total = s.hist + kWarps * bins * (wide ? 4 : 32 * 2);
   return s;
 }
 
 // The largest query chunk (8, 4, 2 or 1) whose block fits; 0 if none does
 // (and for a block_n whose rows a 16-bit kept-row id cannot name).
-inline int chunk_queries(int w, int block_n, int l_k, size_t head) {
+inline int chunk_queries(int w, int block_n, int l_k, size_t head,
+                         bool wide) {
   if (block_n > 0x10000) return 0;
   for (int bq = kQueries; bq >= 1; bq >>= 1) {
-    if (layout(w, block_n, bq, l_k, head).total <= kMaxSmem) return bq;
+    if (layout(w, block_n, bq, l_k, head, wide).total <= kMaxSmem) return bq;
   }
   return 0;
+}
+
+// The select of a launch: the lane-private counters while a chunk of one
+// query fits with them (every shape with byte entries, W <= 7), else the
+// wide counters.  Returns (wide, query chunk); chunk 0 if neither fits.
+struct Select {
+  bool wide;
+  int bq;
+};
+
+inline Select choose_select(int w, int block_n, int l_k, size_t head) {
+  const int bq = chunk_queries(w, block_n, l_k, head, false);
+  if (bq > 0 || byte_entries(w)) return {false, bq};
+  return {true, chunk_queries(w, block_n, l_k, head, true)};
 }
 
 // Entry k of a unit: the distance of row c * 128 + 32 k + lane.
@@ -107,23 +129,23 @@ __device__ __forceinline__ int entry(U u, int k) {
 }
 
 // A. Distances of the row block's rows to the chunk's nqc queries (qs,
-// [nqc][w] in shared memory) into tile ([nqc][n_units]).  Row r's word j is
-// codes[r * rs + j * ws]; base is the block's first global row.  A thread
-// takes the units c = warp + kWarps i; with one word per code it issues the
-// loads of four units before it uses any, so their latencies overlap.
+// [nqc][w] in shared memory) into tile ([nqc][n_units]), for the 128-row
+// chunks [c_lo, c_hi).  Row r's word j is codes[(r - r_off) * rs + j * ws];
+// base is the block's first global row.  A thread takes the chunks
+// c = c_lo + warp + kWarps i; with one word per code it issues the loads of
+// four chunks before it uses any, so their latencies overlap.
 template <typename U, int kBits>
 __device__ __forceinline__ void stage_distances(
     U* tile, const uint32_t* qs, int nqc, const uint32_t* codes, int rs,
     int ws, int w, const int32_t* __restrict__ active, int64_t base, int n,
-    int block_n, int n_units) {
+    int block_n, int n_units, int c_lo, int c_hi, int r_off) {
   constexpr U kDeadEntry = (U(1) << kBits) - 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_chunks = n_units / 32;
   // row r of unit c is live: inside the block, below n, active
   auto row_in = [&](int c, int k) {
     const int r = c * 128 + 32 * k + lane;
-    return c < n_chunks && r < block_n && base + r < n;
+    return c < c_hi && r < block_n && base + r < n;
   };
   auto is_dead = [&](int c, int k) {
     return !row_in(c, k) ||
@@ -139,7 +161,7 @@ __device__ __forceinline__ void stage_distances(
     tile[b * n_units + c * 32 + lane] = u;
   };
   if (w == 1) {
-    for (int c0 = warp; c0 < n_chunks; c0 += 4 * kWarps) {
+    for (int c0 = c_lo + warp; c0 < c_hi; c0 += 4 * kWarps) {
       uint32_t x[4][4];
       unsigned dead[4];
 #pragma unroll
@@ -149,7 +171,7 @@ __device__ __forceinline__ void stage_distances(
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           x[i][k] = row_in(c, k) ? codes[static_cast<int64_t>(
-                                       c * 128 + 32 * k + lane) * rs]
+                                       c * 128 + 32 * k + lane - r_off) * rs]
                                  : 0u;
           if (is_dead(c, k)) dead[i] |= 1u << k;
         }
@@ -157,7 +179,7 @@ __device__ __forceinline__ void stage_distances(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = c0 + i * kWarps;
-        if (c >= n_chunks) break;
+        if (c >= c_hi) break;
         for (int b = 0; b < nqc; ++b) {
           const uint32_t q = qs[b];
           int d[4];
@@ -169,7 +191,7 @@ __device__ __forceinline__ void stage_distances(
     }
     return;
   }
-  for (int c = warp; c < n_chunks; c += kWarps) {
+  for (int c = c_lo + warp; c < c_hi; c += kWarps) {
     int acc[kQueries][4];
     unsigned dead = 0;
 #pragma unroll
@@ -183,7 +205,7 @@ __device__ __forceinline__ void stage_distances(
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         x[k] = row_in(c, k) ? codes[static_cast<int64_t>(
-                                  c * 128 + 32 * k + lane) * rs +
+                                  c * 128 + 32 * k + lane - r_off) * rs +
                               static_cast<int64_t>(j) * ws]
                             : 0u;
       }
@@ -207,7 +229,8 @@ __device__ __forceinline__ void stage_distances(
 // (((g * grid_n + blk) * nq + b0) * l_k).  Every thread of the block calls
 // it (it holds block barriers); the caller syncs before reusing the
 // shared memory.
-template <bool kDistOrder, typename U, int kBits, typename DT, typename IT>
+template <bool kDistOrder, typename U, int kBits, bool kWide, typename DT,
+          typename IT>
 __device__ __forceinline__ void select_chunk(
     const U* tile, int* seg_all, uint16_t* ids_all, uint32_t* hist_all,
     int nqc, int n_units, int w, int l_k, int block_n,
@@ -224,15 +247,26 @@ __device__ __forceinline__ void select_chunk(
   const int n_chunks = n_units / 32;
   const int c0 = s * n_chunks / spq, c1 = (s + 1) * n_chunks / spq;
   const int max_dist = 32 * w, bins = max_dist + 2;
-  uint32_t* h = hist_all + static_cast<size_t>(warp) * bins * 16;
+  uint32_t* h = hist_all + static_cast<size_t>(warp) * bins * (kWide ? 1 : 16);
   const U* tq = tile + static_cast<size_t>(j) * n_units;
   uint16_t* ids = ids_all + static_cast<size_t>(j) * l_k;
   const int* segq = seg_all + j * spq * bins;
 
   // B. this segment's histogram: lane L counts in half L / 16 of word
   // L % 16 of each bin, a fire-and-forget atomic that no other lane's
-  // counter shares
-  if (mine) {
+  // counter shares; wide codes count straight into the segment's bins
+  if (mine && kWide) {
+    int* hc = seg_all + warp * bins;
+    for (int i = lane; i < bins; i += 32) hc[i] = 0;
+    __syncwarp();
+    for (int c = c0; c < c1; ++c) {
+      const U u = tq[c * 32 + lane];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        atomicAdd(&hc[min(entry<U, kBits>(u, k), max_dist + 1)], 1);
+      }
+    }
+  } else if (mine) {
     for (int i = lane; i < bins * 16; i += 32) h[i] = 0u;
     __syncwarp();
     const uint32_t inc = 1u << (16 * (lane >> 4));
@@ -399,7 +433,8 @@ __device__ __forceinline__ void select_chunk(
 // A whole block of topk_hist_kernel / topk_fused_kernel: block (group g,
 // row block, query chunk), chunk fastest so that the chunks of one row
 // block read its codes close together in time.
-template <bool kDistOrder, typename U, int kBits, typename DT, typename IT>
+template <bool kDistOrder, typename U, int kBits, bool kWide, typename DT,
+          typename IT>
 __device__ __forceinline__ void scan_block(
     unsigned char* smem, const uint32_t* __restrict__ codes,
     const uint32_t* __restrict__ queries, const int32_t* __restrict__ active,
@@ -409,7 +444,7 @@ __device__ __forceinline__ void scan_block(
   const int qc = blockIdx.x % n_qc;
   const int blk = (blockIdx.x / n_qc) % grid_n;
   const int g = blockIdx.x / (n_qc * grid_n);
-  const Layout lay = layout(w, block_n, bq, l_k, 0);
+  const Layout lay = layout(w, block_n, bq, l_k, 0, kWide);
   U* tile = reinterpret_cast<U*>(smem + lay.tile);
   uint32_t* qs = reinterpret_cast<uint32_t*>(smem + lay.qs);
   const int n_units = (block_n + 127) / 128 * 32;
@@ -422,9 +457,9 @@ __device__ __forceinline__ void scan_block(
   __syncthreads();
   stage_distances<U, kBits>(
       tile, qs, nqc, codes + (static_cast<int64_t>(g) * n + base) * w, w, 1,
-      w, active, base, n, block_n, n_units);
+      w, active, base, n, block_n, n_units, 0, n_units / 32, 0);
   __syncthreads();
-  select_chunk<kDistOrder, U, kBits>(
+  select_chunk<kDistOrder, U, kBits, kWide>(
       tile, reinterpret_cast<int*>(smem + lay.seg),
       reinterpret_cast<uint16_t*>(smem + lay.ids),
       reinterpret_cast<uint32_t*>(smem + lay.hist), nqc, n_units, w, l_k,
@@ -444,19 +479,26 @@ struct Tag {
   using type = T;
 };
 
-// Calls f(Tag<U>, integral_constant<kBits>, Tag<DT>, Tag<IT>) with the
-// distance tile's unit (bytes for W <= 7, else 16-bit entries) and the
-// pack's (distance, id) types: 0 int32/int32, 1 int16/int16, 2
+// Calls f(Tag<U>, integral_constant<kBits>, integral_constant<kWide>,
+// Tag<DT>, Tag<IT>) with the distance tile's unit (bytes for W <= 7, else
+// 16-bit entries), the select's counters (wide only with 16-bit entries)
+// and the pack's (distance, id) types: 0 int32/int32, 1 int16/int16, 2
 // uint8/int16.  Returns f's cudaError_t, or cudaErrorInvalidValue for an
-// unknown pack.
+// unknown pack or wide counters with byte entries.
 template <typename F>
-int dispatch(int pack, int w, F&& f) {
+int dispatch(int pack, int w, bool wide, F&& f) {
+  using Narrow = std::integral_constant<bool, false>;
+  using Wide = std::integral_constant<bool, true>;
   auto entries = [&](auto dt, auto it) -> int {
     if (byte_entries(w)) {
-      return f(Tag<uint32_t>{}, std::integral_constant<int, 8>{}, dt, it);
+      if (wide) return static_cast<int>(cudaErrorInvalidValue);
+      return f(Tag<uint32_t>{}, std::integral_constant<int, 8>{}, Narrow{},
+               dt, it);
     }
-    return f(Tag<unsigned long long>{}, std::integral_constant<int, 16>{},
-             dt, it);
+    using U16 = Tag<unsigned long long>;
+    using B16 = std::integral_constant<int, 16>;
+    if (wide) return f(U16{}, B16{}, Wide{}, dt, it);
+    return f(U16{}, B16{}, Narrow{}, dt, it);
   };
   switch (pack) {
     case 0: return entries(Tag<int32_t>{}, Tag<int32_t>{});

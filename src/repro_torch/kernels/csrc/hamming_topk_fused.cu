@@ -39,7 +39,7 @@ namespace {
 
 using hsel::kThreads;
 
-template <typename U, int kBits, typename DT, typename IT>
+template <typename U, int kBits, bool kWide, typename DT, typename IT>
 __global__ void __launch_bounds__(kThreads)
 topk_fused_kernel(const uint32_t* __restrict__ codes,
                   const uint32_t* __restrict__ queries,
@@ -47,7 +47,7 @@ topk_fused_kernel(const uint32_t* __restrict__ codes,
                   IT* __restrict__ out_i, int n, int w, int nq, int l_k,
                   int block_n, int grid_n, int bq, int d_sent) {
   extern __shared__ __align__(16) unsigned char smem[];
-  hsel::scan_block<true, U, kBits>(smem, codes, queries, active, out_d,
+  hsel::scan_block<true, U, kBits, kWide>(smem, codes, queries, active, out_d,
                                    out_i, n, w, nq, l_k, block_n, grid_n, bq,
                                    d_sent);
 }
@@ -56,9 +56,10 @@ topk_fused_kernel(const uint32_t* __restrict__ codes,
 
 // 1 if a block of this shape fits the shared memory a block may use (with
 // a query chunk of 8, 4, 2 or 1, and room for l = block_n kept rows), else
-// 0; topk_fused_launch refuses the shapes that do not.
+// 0; topk_fused_launch refuses the shapes that do not.  Every W <= 32 fits
+// at every block_n <= 8192.
 extern "C" int topk_fused_fits(int w, int block_n) {
-  return hsel::chunk_queries(w, block_n, block_n, 0) > 0 ? 1 : 0;
+  return hsel::choose_select(w, block_n, block_n, 0).bq > 0 ? 1 : 0;
 }
 
 // codes: (groups, n, w) uint32; queries: (groups, nq, w) uint32; active:
@@ -73,16 +74,18 @@ extern "C" int topk_fused_launch(const void* codes, const void* queries,
   if (!topk_fused_fits(w, block_n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bq = hsel::chunk_queries(w, block_n, l_k, 0);
-  const size_t smem = hsel::layout(w, block_n, bq, l_k, 0).total;
+  const hsel::Select sel = hsel::choose_select(w, block_n, l_k, 0);
+  const int bq = sel.bq;
+  const size_t smem = hsel::layout(w, block_n, bq, l_k, 0, sel.wide).total;
   const unsigned blocks = hsel::scan_blocks(groups, grid_n, nq, bq);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return hsel::dispatch(pack, w, [&](auto u, auto bits, auto dt,
-                                     auto it) -> int {
+  return hsel::dispatch(pack, w, sel.wide, [&](auto u, auto bits, auto wide,
+                                               auto dt, auto it) -> int {
     using U = typename decltype(u)::type;
     using DT = typename decltype(dt)::type;
     using IT = typename decltype(it)::type;
-    auto kern = topk_fused_kernel<U, decltype(bits)::value, DT, IT>;
+    auto kern = topk_fused_kernel<U, decltype(bits)::value,
+                                  decltype(wide)::value, DT, IT>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

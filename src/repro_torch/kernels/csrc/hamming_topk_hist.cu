@@ -37,11 +37,18 @@
 // rows over the 8 warps.  topk_hist_dma_kernel runs persistent blocks of
 // the same 256 threads, as many as fit on the card at once, each walking
 // the linear steps s = g * grid_n + block, blockIdx.x + k gridDim.x, as the
-// TPU kernel's sequential grid does, and every query chunk within a step;
-// two shared code tiles form a double buffer, and the cp.async copy of the
-// next step's tile (4-byte copies landing in the transposed slots; rows
-// past n zero-filled with no read) is issued before the current step's
-// select.  Its distances come from the staged tile instead of HBM.
+// TPU kernel's sequential grid does, and every query chunk within a step.
+// The codes of a step stream through two shared sub-tiles of S rows x W
+// words (S = 4,096 / W rows rounded down to 128, at least 128, at most the
+// row block: the whole block while W = 1) as a double buffer, each a
+// cp.async copy (4-byte copies landing in the transposed slots; rows past
+// n zero-filled with no read) issued one sub-tile ahead, so the next
+// step's first sub-tile is in flight during the current step's select.
+// The buffers' size does not grow with block_n W: every W <= 32 fits at
+// every block_n <= 8192.  A row block of one sub-tile stays resident for
+// all the step's query chunks; with several sub-tiles each chunk streams
+// them again.  Its distances come from the staged sub-tiles instead of
+// HBM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,13 +59,23 @@ namespace {
 
 using hsel::kThreads;
 
-// Bytes of the two code tiles [w][block_n] ahead of topk_hist_dma_kernel's
-// select memory.
-__host__ __device__ inline size_t dma_head(int w, int block_n) {
-  return 2 * sizeof(uint32_t) * static_cast<size_t>(w) * block_n;
+constexpr int kSubWords = 4096;   // code words of one sub-tile, at most
+
+// Rows of one sub-tile of topk_hist_dma_kernel's double buffer.
+__host__ __device__ inline int sub_rows(int w, int block_n) {
+  const int full = (block_n + 127) / 128 * 128;
+  int s = kSubWords / w / 128 * 128;
+  if (s < 128) s = 128;
+  return s < full ? s : full;
 }
 
-template <typename U, int kBits, typename DT, typename IT>
+// Bytes of the two code sub-tiles [w][sub_rows] ahead of
+// topk_hist_dma_kernel's select memory.
+__host__ __device__ inline size_t dma_head(int w, int block_n) {
+  return 2 * sizeof(uint32_t) * static_cast<size_t>(w) * sub_rows(w, block_n);
+}
+
+template <typename U, int kBits, bool kWide, typename DT, typename IT>
 __global__ void __launch_bounds__(kThreads)
 topk_hist_kernel(const uint32_t* __restrict__ codes,
                  const uint32_t* __restrict__ queries,
@@ -66,37 +83,39 @@ topk_hist_kernel(const uint32_t* __restrict__ codes,
                  IT* __restrict__ out_i, int n, int w, int nq, int l_k,
                  int block_n, int grid_n, int bq, int d_sent) {
   extern __shared__ __align__(16) unsigned char smem[];
-  hsel::scan_block<false, U, kBits>(smem, codes, queries, active, out_d,
+  hsel::scan_block<false, U, kBits, kWide>(smem, codes, queries, active, out_d,
                                     out_i, n, w, nq, l_k, block_n, grid_n,
                                     bq, d_sent);
 }
 
-// Issue the asynchronous copy of step s's code tile (group s / grid_n, row
-// block s % grid_n) into `tile`, transposed to [w][block_n], as one commit
-// group.  Each word is a 4-byte cp.async; a row past n copies 0 bytes from
-// the group's first word (a valid address that is not read) and so lands
-// as zeros.
-__device__ __forceinline__ void fetch_tile(uint32_t* tile,
-                                           const uint32_t* codes, int s,
-                                           int grid_n, int n, int w,
-                                           int block_n) {
+// Issue the asynchronous copy of sub-tile j (rows j * sub .. of the row
+// block) of step s (group s / grid_n, row block s % grid_n) into `tile`,
+// transposed to [w][sub], as one commit group.  Each word is a 4-byte
+// cp.async; a row past n or past the row block copies 0 bytes from the
+// group's first word (a valid address that is not read) and so lands as
+// zeros.
+__device__ __forceinline__ void fetch_sub(uint32_t* tile,
+                                          const uint32_t* codes, int s, int j,
+                                          int grid_n, int n, int w,
+                                          int block_n, int sub) {
   const uint32_t* gcodes = codes + static_cast<int64_t>(s / grid_n) * n * w;
-  const int64_t base = static_cast<int64_t>(s % grid_n) * block_n;
-  for (int r = threadIdx.x; r < block_n; r += kThreads) {
+  const int r0 = j * sub;
+  const int64_t base = static_cast<int64_t>(s % grid_n) * block_n + r0;
+  for (int r = threadIdx.x; r < sub; r += kThreads) {
     const int64_t gr = base + r;
-    const bool in = gr < n;
-    for (int j = 0; j < w; ++j) {
+    const bool in = r0 + r < block_n && gr < n;
+    for (int k = 0; k < w; ++k) {
       const uint32_t dst = static_cast<uint32_t>(
-          __cvta_generic_to_shared(tile + j * block_n + r));
+          __cvta_generic_to_shared(tile + k * sub + r));
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                   "l"(in ? gcodes + gr * w + j : gcodes), "r"(in ? 4 : 0)
+                   "l"(in ? gcodes + gr * w + k : gcodes), "r"(in ? 4 : 0)
                    : "memory");
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <typename U, int kBits, typename DT, typename IT>
+template <typename U, int kBits, bool kWide, typename DT, typename IT>
 __global__ void __launch_bounds__(kThreads)
 topk_hist_dma_kernel(const uint32_t* __restrict__ codes,
                      const uint32_t* __restrict__ queries,
@@ -105,26 +124,31 @@ topk_hist_dma_kernel(const uint32_t* __restrict__ codes,
                      int block_n, int grid_n, int n_steps, int bq,
                      int d_sent) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const size_t tile_words = static_cast<size_t>(w) * block_n;
+  const int sub = sub_rows(w, block_n);
+  const size_t sub_words = static_cast<size_t>(w) * sub;
   uint32_t* ctiles = reinterpret_cast<uint32_t*>(smem);
   const hsel::Layout lay =
-      hsel::layout(w, block_n, bq, l_k, dma_head(w, block_n));
+      hsel::layout(w, block_n, bq, l_k, dma_head(w, block_n), kWide);
   U* tile = reinterpret_cast<U*>(smem + lay.tile);
   uint32_t* qs = reinterpret_cast<uint32_t*>(smem + lay.qs);
   const int n_units = (block_n + 127) / 128 * 32;
-  int s = blockIdx.x;                    // the launch keeps gridDim.x <= n_steps
-  fetch_tile(ctiles, codes, s, grid_n, n, w, block_n);
-  for (int i = 0; s < n_steps; s += gridDim.x, ++i) {
-    const uint32_t* ctile = ctiles + (i & 1) * tile_words;
-    const int next = s + gridDim.x;
-    // the other tile was last read by step i - 1, which a barrier closed
-    if (next < n_steps) {
-      fetch_tile(ctiles + ((i + 1) & 1) * tile_words, codes, next, grid_n, n,
-                 w, block_n);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this step's
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
+  const int n_chunks = n_units / 32;
+  const int n_sub = (block_n + sub - 1) / sub;
+  const int sub_chunks = sub / 128;
+  // the sub-tile copies of one step: one that stays for every query chunk,
+  // or every sub-tile again for each chunk
+  const int per_step = n_sub == 1 ? 1 : (nq + bq - 1) / bq * n_sub;
+  // copy number it of this block, into buffer it & 1; false past its steps
+  auto fetch = [&](int it) {
+    const int s = blockIdx.x + (it / per_step) * gridDim.x;
+    if (s >= n_steps) return false;
+    fetch_sub(ctiles + (it & 1) * sub_words, codes, s, it % per_step % n_sub,
+              grid_n, n, w, block_n, sub);
+    return true;
+  };
+  int it = 0, cur = 0;
+  fetch(0);                              // the launch keeps gridDim.x <= n_steps
+  for (int s = blockIdx.x; s < n_steps; s += gridDim.x) {
     const int g = s / grid_n, blk = s % grid_n;
     const int64_t base = static_cast<int64_t>(blk) * block_n;
     for (int b0 = 0; b0 < nq; b0 += bq) {
@@ -132,17 +156,31 @@ topk_hist_dma_kernel(const uint32_t* __restrict__ codes,
       for (int k = threadIdx.x; k < nqc * w; k += kThreads) {
         qs[k] = queries[(static_cast<int64_t>(g) * nq + b0) * w + k];
       }
-      __syncthreads();   // the code tile and the queries are in place
-      hsel::stage_distances<U, kBits>(tile, qs, nqc, ctile, 1, block_n, w,
-                                      active, base, n, block_n, n_units);
-      __syncthreads();
-      hsel::select_chunk<false, U, kBits>(
+      for (int j = 0; j < n_sub; ++j) {
+        if (n_sub > 1 || b0 == 0) {
+          // the other buffer was last read before a barrier below
+          if (fetch(it + 1)) {
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+          } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+          }
+          cur = it & 1;
+          ++it;
+        }
+        __syncthreads();   // the sub-tile and the queries are in place
+        hsel::stage_distances<U, kBits>(
+            tile, qs, nqc, ctiles + cur * sub_words, 1, sub, w, active, base,
+            n, block_n, n_units, j * sub_chunks,
+            min(n_chunks, (j + 1) * sub_chunks), j * sub);
+        __syncthreads();   // the sub-tile may be refilled
+      }
+      hsel::select_chunk<false, U, kBits, kWide>(
           tile, reinterpret_cast<int*>(smem + lay.seg),
           reinterpret_cast<uint16_t*>(smem + lay.ids),
           reinterpret_cast<uint32_t*>(smem + lay.hist), nqc, n_units, w, l_k,
           block_n, out_d, out_i,
           ((static_cast<int64_t>(g) * grid_n + blk) * nq + b0) * l_k, d_sent);
-      __syncthreads();   // the select's memory and the tiles are reused
+      __syncthreads();   // the select's memory and the queries are reused
     }
   }
 }
@@ -153,23 +191,25 @@ int launch(const void* codes, const void* queries, const void* active,
            int l_k, int block_n, int grid_n, int pack, int d_sent,
            void* stream) {
   const size_t head = kDma ? dma_head(w, block_n) : 0;
-  const int bq = hsel::chunk_queries(w, block_n, l_k, head);
+  const hsel::Select sel = hsel::choose_select(w, block_n, l_k, head);
+  const int bq = sel.bq;
   if (bq == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = hsel::layout(w, block_n, bq, l_k, head).total;
+  const size_t smem = hsel::layout(w, block_n, bq, l_k, head, sel.wide).total;
   const auto c = static_cast<const uint32_t*>(codes);
   const auto q = static_cast<const uint32_t*>(queries);
   const auto a = static_cast<const int32_t*>(active);
   const auto st = static_cast<cudaStream_t>(stream);
-  return hsel::dispatch(pack, w, [&](auto u, auto bits, auto dt,
-                                     auto it) -> int {
+  return hsel::dispatch(pack, w, sel.wide, [&](auto u, auto bits, auto wide,
+                                               auto dt, auto it) -> int {
     using U = typename decltype(u)::type;
     using DT = typename decltype(dt)::type;
     using IT = typename decltype(it)::type;
     constexpr int kBits = decltype(bits)::value;
+    constexpr bool kWide = decltype(wide)::value;
     const auto od = static_cast<DT*>(out_d);
     const auto oi = static_cast<IT*>(out_i);
     if constexpr (!kDma) {
-      auto kern = topk_hist_kernel<U, kBits, DT, IT>;
+      auto kern = topk_hist_kernel<U, kBits, kWide, DT, IT>;
       cudaError_t err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
@@ -179,7 +219,7 @@ int launch(const void* codes, const void* queries, const void* active,
       kern<<<blocks, kThreads, smem, st>>>(c, q, a, od, oi, n, w, nq, l_k,
                                           block_n, grid_n, bq, d_sent);
     } else {
-      auto kern = topk_hist_dma_kernel<U, kBits, DT, IT>;
+      auto kern = topk_hist_dma_kernel<U, kBits, kWide, DT, IT>;
       cudaError_t err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
@@ -207,15 +247,16 @@ int launch(const void* codes, const void* queries, const void* active,
 
 // 1 if a block of this shape fits the shared memory a block may use (with
 // a query chunk of 8, 4, 2 or 1, and room for l = block_n kept rows), else
-// 0; topk_hist_launch refuses the shapes that do not.
+// 0; topk_hist_launch refuses the shapes that do not.  Every W <= 32 fits
+// at every block_n <= 8192.
 extern "C" int topk_hist_fits(int w, int block_n) {
-  return hsel::chunk_queries(w, block_n, block_n, 0) > 0 ? 1 : 0;
+  return hsel::choose_select(w, block_n, block_n, 0).bq > 0 ? 1 : 0;
 }
 
 // The same for topk_hist_dma_kernel, whose block also holds two code
-// tiles: W = 4 at block_n = 8192 fits topk_hist_kernel but not this one.
+// sub-tiles of at most kSubWords words each.
 extern "C" int topk_hist_dma_fits(int w, int block_n) {
-  return hsel::chunk_queries(w, block_n, block_n, dma_head(w, block_n)) > 0
+  return hsel::choose_select(w, block_n, block_n, dma_head(w, block_n)).bq > 0
              ? 1 : 0;
 }
 

@@ -189,9 +189,9 @@ def hamming_topk_hist_dma(codes, queries, l_k: int, block_n: int,
     blocks walk the (group, row block) steps, each copying its next code
     tile into a second shared buffer (cp.async) while it selects from the
     current one.  Same arguments and outputs as ``hamming_topk_hist``, bit
-    for bit, so its plain version is ``hamming_topk_hist_plain``.  Its
-    block holds two tiles, so it refuses some shapes that
-    ``hamming_topk_hist`` takes (W = 4 at block_n = 8192).
+    for bit, so its plain version is ``hamming_topk_hist_plain``.  The
+    codes stream through two sub-tiles of at most 4,096 words, so it takes
+    every shape ``hamming_topk_hist`` takes (W <= 32 at block_n <= 8192).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``hamming_topk_hist_dma.launches``) or

@@ -61,6 +61,15 @@ def test_kernels_build_for_sm90a(cuda):
     (777, 64, 48, [7, 8, 9]),
     (300, 2001, 64, [5]),
     (129, 3, 1, [11, 12]),
+    # past the 3,504 features a whole-row tile once allowed; 26,215 is
+    # newsgroups_like(d=26214) with its bias column
+    (500, 3505, 20, [1, 2, 3, 4]),
+    (300, 3505, 64, [6, 7]),
+    (400, 26215, 20, [1, 2, 3, 4]),
+    (200, 26215, 64, [8]),
+    (32, 385, 20, [1, 2, 3, 4]),            # the query shape
+    (2000, 385, 20, [1, 2, 3, 4]),          # an insert batch
+    (70, 50, 300, [9, 10]),                 # several column passes
 ])
 def test_hash_kernel_vs_plain(cuda, n, d, k, seeds):
     rng = np.random.default_rng(n)
@@ -215,16 +224,45 @@ def test_dma_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
 
 
 def test_dma_scan_refuses_two_tiles_that_do_not_fit(cuda):
-    """W = 4 at block_n = 8192: one tile fits a block (the hist kernel
-    runs), two do not (the pipelined kernel raises, never falls back)."""
+    """W = 4 at block_n = 8192, the shape whose two whole code tiles once
+    did not fit a block: the pipelined kernel now streams sub-tiles, so it
+    runs and equals its plain version and the hist kernel."""
     codes, q, _ = _scan_inputs(cuda, 1, 10000, 4, 3, 0.0)
     before = hamming_topk_hist_dma.launches
     hd, hi = hamming_topk_hist(codes, q, 16, 8192, None, "16")
     pd, pi = hamming_topk_hist_plain(codes, q, 16, 8192, None, "16")
     assert torch.equal(hd, pd) and torch.equal(hi, pi)
-    with pytest.raises(ValueError, match="shared memory"):
-        hamming_topk_hist_dma(codes, q, 16, 8192, None, "16")
-    assert hamming_topk_hist_dma.launches == before
+    kd, ki = hamming_topk_hist_dma(codes, q, 16, 8192, None, "16")
+    torch.cuda.synchronize()
+    assert hamming_topk_hist_dma.launches == before + 1
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("pack", ["none", "16"])
+@pytest.mark.parametrize("block_n", [2048, 4096, 8192])
+@pytest.mark.parametrize("w", [13, 14, 32])
+@pytest.mark.parametrize("select", ["hist", "argmin", "hist_dma"])
+def test_wide_code_scans_vs_plain(cuda, select, w, block_n, pack):
+    """Wide codes (the select's wide counters) at every block size up to
+    8192, l = block_n, 5% tombstones, two query chunks: each kernel equals
+    its plain version bit for bit, and the pipelined one the hist
+    kernel."""
+    kern, plain = {
+        "hist": (hamming_topk_hist, hamming_topk_hist_plain),
+        "argmin": (hamming_topk_fused, hamming_topk_fused_plain),
+        "hist_dma": (hamming_topk_hist_dma, hamming_topk_hist_plain)}[select]
+    n = 2 * block_n + 777
+    codes, q, act = _scan_inputs(cuda, 2, n, w, 9, 0.05, seed=w + block_n)
+    before = kern.launches
+    kd, ki = kern(codes, q, block_n, block_n, act, pack)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    pd, pi = plain(codes, q, block_n, block_n, act, pack)
+    assert kd.dtype == pd.dtype and ki.dtype == pi.dtype
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    if select == "hist_dma":
+        hd, hi = hamming_topk_hist(codes, q, block_n, block_n, act, pack)
+        assert torch.equal(kd, hd) and torch.equal(ki, hi)
 
 
 @pytest.mark.parametrize("n,w,b", [
@@ -296,6 +334,8 @@ def test_service_on_cuda_matches_cpu(cuda, mode):
 @pytest.mark.parametrize("n,d,k", [
     (1000, 385, 20), (777, 64, 48), (300, 2001, 64), (129, 3, 1),
     (32, 385, 20), (5000, 100, 32),
+    (500, 3505, 20), (300, 3505, 64), (400, 26215, 20), (200, 26215, 64),
+    (60, 40, 1000),
 ])
 def test_factor_hash_kernel_vs_plain(cuda, n, d, k):
     rng = np.random.default_rng(n + d)

@@ -43,11 +43,18 @@ PACKS = ("none", "16", "8")
 
 # -- seeded hash -------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [20, 48, 64])
-@pytest.mark.parametrize("g", [1, 3])
-def test_seeded_hash_vs_jax_within_near_zero_bound(k, g):
+# (g, k, n, d): the first six keep their ids; the wide-d cases are the
+# widths past 3,504, which the CUDA kernels once refused
+SEEDED_CASES = [pytest.param(g, k, 300, 97, id=f"{g}-{k}")
+                for g in (1, 3) for k in (20, 48, 64)] + [
+    pytest.param(2, 20, 64, 3505, id="wide-d3505"),
+    pytest.param(1, 40, 61, 4001, id="wide-d4001"),
+]
+
+
+@pytest.mark.parametrize("g,k,n,d", SEEDED_CASES)
+def test_seeded_hash_vs_jax_within_near_zero_bound(g, k, n, d):
     rng = np.random.default_rng(10 * k + g)
-    n, d = 300, 97
     x = rng.normal(size=(n, d)).astype(np.float32)
     seeds = [int(s) for s in rng.integers(0, 2**32, g)]
     want = from_numpy_u32(np.asarray(jops.bilinear_hash_seeded_grouped(
@@ -67,6 +74,17 @@ def test_seeded_hash_vs_jax_within_near_zero_bound(k, g):
         assert torch.equal(tref.bilinear_hash_seeded_ref(xt, s, k), got[i])
 
 
+def test_seeds_on_device_copied_once_per_seed_list():
+    """The seeded hash's seed list goes to the device once: the same list
+    gives the same tensor back, holding the seeds' uint32 bits."""
+    seeds = [1, 0xFFFFFFFF, 7]
+    first = tbh.seeds_on_device(seeds, torch.device("cpu"))
+    assert tbh.seeds_on_device(list(seeds), torch.device("cpu")) is first
+    assert first.dtype == torch.int32
+    assert first.tolist() == tbh.seeds_as_int32(seeds) == [1, -1, 7]
+    assert tbh.seeds_on_device([1, 2], torch.device("cpu")) is not first
+
+
 def test_sign_flip_ratios_flags_a_bit_far_from_zero():
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(20, 16)).astype(np.float32))
@@ -82,10 +100,15 @@ def test_sign_flip_ratios_flags_a_bit_far_from_zero():
 
 # -- materialised-factor hash -----------------------------------------------
 
-@pytest.mark.parametrize("k", [20, 32, 64])
-def test_bilinear_hash_plain_vs_jax_within_near_zero_bound(k):
+@pytest.mark.parametrize("k,n,d", [
+    pytest.param(20, 333, 97, id="20"),
+    pytest.param(32, 333, 97, id="32"),
+    pytest.param(64, 333, 97, id="64"),
+    pytest.param(20, 64, 3505, id="wide-d3505"),
+    pytest.param(33, 61, 4001, id="wide-d4001"),
+])
+def test_bilinear_hash_plain_vs_jax_within_near_zero_bound(k, n, d):
     rng = np.random.default_rng(k)
-    n, d = 333, 97
     x = rng.normal(size=(n, d)).astype(np.float32)
     u = rng.normal(size=(d, k)).astype(np.float32)
     v = rng.normal(size=(d, k)).astype(np.float32)
@@ -185,14 +208,18 @@ def _scan_vs_jax(codes, qs, l, active=None, packs=PACKS, block_n=4096,
     return want_d, want_i
 
 
-@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("w", [1, 2, 4, 13, 32])
 def test_scan_every_pack_and_width(w):
+    """Every pack that is legal at the width (pack 8 carries distances
+    below 255, so W <= 7), W = 13 and 32 being the wide codes whose
+    kernels take the wide-counter select."""
     rng = np.random.default_rng(w)
     codes = rng.integers(0, 2**32, (2, 700, w), dtype=np.uint32)
     codes[..., 0] &= np.uint32(0xF)          # few distinct values: ties
     qs = rng.integers(0, 2**32, (2, 5, w), dtype=np.uint32)
-    _scan_vs_jax(codes, qs, 40, block_n=256,
-                 jax_packs=PACKS if w == 1 else ("16",))
+    packs = tuple(p for p in PACKS if p != "8" or 32 * w < 0xFF)
+    _scan_vs_jax(codes, qs, 40, packs=packs, block_n=256,
+                 jax_packs=packs if w == 1 else ("16",))
 
 
 def test_scan_constant_codes_ties_to_lowest_id():
