@@ -22,7 +22,8 @@ features, 10 classes, from ``--seed``):
   against a fresh ``MultiTableIndex`` over the same live rows, then
   repeated with ``fused_select="argmin"`` (the masked-argmin kernel);
 - the paper's method: ``HyperplaneIndex`` with LBH learned on the card
-  (bits 20, 1000-point sample, 150 Nesterov steps per bit) answering 32
+  (bits 20, 1000-point sample, 150 Nesterov steps per bit, each bit one
+  replay of a CUDA graph captured once per fit) answering 32
   SVM normals through its table and its scan, then 10 iterations of SVM
   active learning with all 10 one-vs-all SVMs through an LBH
   ``HashSelector``, checked against the exhaustive selector and the BH
@@ -104,37 +105,51 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(torch, fn):
-    """Run fn once under torch.profiler.  Returns (device-busy ms,
-    {kernel name: (device ms, launches)}) from the CUDA kernel events; the
-    dict is empty when the profiler saw no device activity."""
+# Now and then a torch.profiler session comes back with the launches
+# recorded but no kernel records; such a session is profiled again.
+PROFILE_TRIES = 5
+PROFILE_REPEATS = []
+
+
+def device_profile(torch, fn, need=()):
+    """Run fn under torch.profiler.  Returns (device-busy ms,
+    {kernel name: (device ms, launches)}) from the CUDA kernel events.
+    fn runs again, up to PROFILE_TRIES times in all, until the profiler
+    saw device work and, for each fragment in need, a kernel whose name
+    holds it; the dict is empty when no try saw device work."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    kernels = {e.key: (e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: (e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+        missing = [f for f in need if kernel_device_ms(kernels, f) is None]
+        if kernels and not missing:
+            break
+        launches = sum(e.count for e in prof.key_averages()
+                       if "LaunchKernel" in e.key or "cuLaunch" in e.key)
+        PROFILE_REPEATS.append(dict(attempt=attempt + 1,
+                                    missing=missing or ["any kernel"],
+                                    seen=len(kernels), launch_calls=launches,
+                                    at=round(time.perf_counter() - T0, 1)))
     return sum(ms for ms, _ in kernels.values()), kernels
 
 
 def profiled_ms(torch, fn, reps: int, fragment: str | None = None):
     """Device ms per call of fn over reps calls under torch.profiler: the
-    kernels whose name holds fragment, or all device work.  Profiles a
-    second time if the first saw none; None if neither did."""
-    for _ in range(2):
-        busy, kernels = device_profile(
-            torch, lambda: [fn() for _ in range(reps)])
-        if fragment is None and busy > 0:
-            return busy / reps
-        if fragment is not None:
-            ms = kernel_device_ms(kernels, fragment)
-            if ms is not None:
-                return ms
-    return None
+    kernels whose name holds fragment, or all device work.  None if no
+    try of device_profile saw them."""
+    busy, kernels = device_profile(
+        torch, lambda: [fn() for _ in range(reps)],
+        () if fragment is None else (fragment,))
+    if fragment is None:
+        return busy / reps if busy > 0 else None
+    return kernel_device_ms(kernels, fragment)
 
 
 def ptxas_lines(log: str, fragment: str):
@@ -176,7 +191,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import learning, search
-    from repro_torch.core.functions import (bilinear_signs,
+    from repro_torch.core.functions import (_sgn, bilinear_signs,
                                             seeded_projections, strict_fp32,
                                             table_seed)
     from repro_torch.core.indexer import HyperplaneIndex, IndexConfig
@@ -453,7 +468,8 @@ def main() -> int:
             def call(kern=kern, c=c, qc=qc, l=l, act=act, rb=rb):
                 return kern(c, qc, min(l, rb), rb, act, "16")
             ev = cuda_ms(torch, call, 20)
-            _, prof = device_profile(torch, lambda: [call() for _ in range(5)])
+            _, prof = device_profile(
+                torch, lambda: [call() for _ in range(5)], (frag,))
             dev_ms = kernel_device_ms(prof, frag)
             check(dev_ms is not None, f"the profiler saw {name} ({shape})")
             scan_times[(name, shape)] = dict(events_ms=ev, device_ms=dev_ms,
@@ -941,7 +957,8 @@ def main() -> int:
     with strict_fp32():
         p_full, q_full = x_m @ u0[:, 0], x_m @ v0[:, 0]
     chain_err = chain_rel = 0.0
-    for m in (LBH_SAMPLE, 777):      # the learner's m, and a non-multiple
+    # the learner's m (16-byte rows), and two m % 4 != 0 (4-byte loads)
+    for m in (LBH_SAMPLE, 777, 999):
         p, q = p_full[:m].contiguous(), q_full[:m].contiguous()
         r = r_full[:m, :m].contiguous()
         got = lbh_chain(p, q, r)
@@ -954,9 +971,9 @@ def main() -> int:
             chain_err = max(chain_err, diff.max().item())
             chain_rel = max(chain_rel,
                             (diff.max() / want.abs().max()).item())
-    print(f"LBH chain at m = {LBH_SAMPLE} and 777: max |kernel - plain| "
-          f"{chain_err}, max relative error (over the largest |plain|) "
-          f"{chain_rel}")
+    print(f"LBH chain at m = {LBH_SAMPLE}, 777 and 999: max |kernel - "
+          f"plain| {chain_err}, max relative error (over the largest "
+          f"|plain|) {chain_rel}")
     chain_ev_ms = cuda_ms(torch, lambda: lbh_chain(p_full, q_full, r_full),
                           200, warmup=5)
     chain_plain_ev_ms = cuda_ms(
@@ -967,7 +984,8 @@ def main() -> int:
     # The profiler's kernel events give the device's own time: the
     # record's ms and plain_ms are those, per call.
     _, prof = device_profile(torch, lambda: [
-        lbh_chain(p_full, q_full, r_full) for _ in range(200)])
+        lbh_chain(p_full, q_full, r_full) for _ in range(200)],
+        ("lbh_chain_kernel",))
     chain_ms = kernel_device_ms(prof, "lbh_chain_kernel")
     plain_busy, _ = device_profile(torch, lambda: [
         lbh_chain_plain(p_full, q_full, r_full) for _ in range(200)])
@@ -980,9 +998,12 @@ def main() -> int:
     m = LBH_SAMPLE
     t_bytes = (m * m * 4 + 4 * m * 4) / HBM_BYTES_S
     t_ops = (2 * m * m + 6 * m) / FP32_FLOP_S
-    print(f"LBH chain at m = {m}, device time per call (torch.profiler): "
-          f"kernel {chain_ms} ms, plain "
-          f"{chain_plain_ms} ms, bound {1e3 * max(t_bytes, t_ops)} ms")
+    print(f"LBH chain at m = {m}, device time per call (torch.profiler; "
+          f"R stays in L2 across back-to-back calls, as in the step loop): "
+          f"kernel {chain_ms} ms, plain {chain_plain_ms} ms, bound "
+          f"{1e3 * max(t_bytes, t_ops)} ms (R from HBM)")
+    for line in ptxas_lines(_build.build_log(CHAIN_LIB), "lbh_chain_kernel"):
+        print(f"  ptxas {CHAIN_LIB}: {line}")
     records["lbh_chain"] = dict(
         name="lbh_chain", route="cuda",
         source="src/repro_torch/kernels/csrc/lbh_chain.cu",
@@ -997,6 +1018,8 @@ def main() -> int:
     phase("10 LBH path: HyperplaneIndex")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    captures0 = learning.BitLoop.captures
+    warmup0 = lbh_chain.warmup_launches
     lcfg = IndexConfig(method="lbh", bits=BITS, radius=RADIUS,
                        lbh_sample=LBH_SAMPLE, lbh_steps=LBH_STEPS)
     hidx = HyperplaneIndex(lcfg, device="cuda").fit(x_np)
@@ -1093,6 +1116,12 @@ def main() -> int:
           "selected margins >= the exhaustive ones")
     check(lbh_launches["lbh_chain"] == 2 * BITS * LBH_STEPS,
           "one chain launch per Nesterov step of both LBH fits")
+    lbh_captures = learning.BitLoop.captures - captures0
+    lbh_warmups = lbh_chain.warmup_launches - warmup0
+    print(f"LBH step loops: {lbh_captures} CUDA graph captures, "
+          f"{lbh_warmups} warm-up chain launches (not in the count above)")
+    check(lbh_captures == 2 and lbh_warmups == 2,
+          "each LBH fit captured its step loop once, for all its bits")
     check(lbh_launches["bilinear_hash"] > 0
           and lbh_launches["hamming_topk_hist"] > 0,
           "the factor hash and the scan launched on the LBH path")
@@ -1104,32 +1133,87 @@ def main() -> int:
     learning.auto_thresholds(x_m, x)
     t_thr = time.perf_counter() - t0
     r_bit = BITS * s_m
-
-    def one_bit():
-        learning._nesterov_bit(u0[:, 0], v0[:, 0], x_m, r_bit, LBH_STEPS,
-                               0.03 / LBH_SAMPLE)
-
-    torch.cuda.synchronize()
+    lr_bit = 0.03 / LBH_SAMPLE
     t0 = time.perf_counter()
-    one_bit()
+    loop = learning.BitLoop(x_m, LBH_STEPS, lr_bit)
     torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    # the profiler slows the host, so it gives the device time only
-    busy_ms, prof = device_profile(torch, one_bit)
+    t_capture = time.perf_counter() - t0
+
+    def one_bit(graphed):
+        return learning._nesterov_bit(u0[:, 0], v0[:, 0], x_m, r_bit,
+                                      LBH_STEPS, lr_bit,
+                                      loop if graphed else None)
+
+    # the graphed loop against the eager one on the same inputs
+    eager_out = one_bit(False)
+    chain0 = lbh_chain.launches
+    graphed_out = one_bit(True)
+    torch.cuda.synchronize()
+    check(lbh_chain.launches - chain0 == LBH_STEPS,
+          "one replay runs the bit's chain launches")
+    same = all(torch.equal(a, b) for a, b in zip(eager_out, graphed_out))
+    loop_diff = {k: (a - b).abs().max().item() for k, a, b in zip(
+        ("u", "v", "costs"), eager_out, graphed_out)}
+    loop_rel = max((a - b).abs().max().item()
+                   / max(a.abs().max().item(), 1e-30)
+                   for a, b in zip(eager_out, graphed_out))
+    print(f"one bit, graphed vs eager: identical {same}; largest "
+          f"|difference| {json.dumps(loop_diff)}, relative {loop_rel}")
+    check(same or loop_rel <= 1e-3,
+          "the graphed loop's u, v and costs equal the eager loop's (or lie "
+          "within 1e-3 of them, relative)")
+    bit_times = {}
+    for label, graphed, reps in (("eager", False, 2), ("graphed", True, 5)):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_bit(graphed)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        # the profiler slows the host, so it gives the device time only
+        busy_ms, prof = device_profile(torch, lambda g=graphed: one_bit(g),
+                                       ("lbh_chain_kernel",))
+        wall_ms = float(np.median(walls))
+        bit_times[label] = dict(
+            wall_ms=walls, busy_ms=busy_ms or None,
+            idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+            chain_ms=kernel_device_ms(prof, "lbh_chain_kernel"),
+            kernels=sum(k for _, k in prof.values()))
+    wall_ms = float(np.median(bit_times["graphed"]["wall_ms"]))
+    eager_ms = float(np.median(bit_times["eager"]["wall_ms"]))
+    # phase 10's whole fit (graphed) against learn_lbh's bit loop run
+    # eagerly on the same sample, warm start and residue: the same factors
+    # bit for bit, so the same codes, Gram-fit error and AL curve
+    r_e, us, vs = BITS * s_m, [], []
+    for j in range(BITS):
+        u, v, _ = learning._nesterov_bit(u0[:, j], v0[:, j], x_m, r_e,
+                                         LBH_STEPS, lr_bit)
+        with strict_fp32():
+            b = _sgn((x_m @ u) * (x_m @ v)).to(torch.float32)
+        r_e = r_e - torch.outer(b, b)
+        us.append(u)
+        vs.append(v)
+    fit_same = (torch.equal(torch.stack(us, dim=1), fam.u)
+                and torch.equal(torch.stack(vs, dim=1), fam.v))
+    print(f"the {BITS}-bit fit run eagerly equals phase 10's graphed fit "
+          f"(u, v): {fit_same}")
+    check(fit_same, "the graphed LBH fit equals the eager one bit for bit")
     codes_np = to_numpy_u32(hidx.codes)
     t0 = time.perf_counter()
     SingleHashTable(codes_np, BITS)
     t_table = time.perf_counter() - t0
-    chain_dev = kernel_device_ms(prof, "lbh_chain_kernel")
     print("LBH fit stages: " + json.dumps({
         "fit_s": hidx.fit_s, "thresholds_s": t_thr,
+        "capture_s": t_capture,
         "one_bit_nesterov_s": wall_ms / 1e3,
         "all_bits_nesterov_s_est": BITS * wall_ms / 1e3,
+        "one_bit_nesterov_eager_s": eager_ms / 1e3,
         "hash_kernel_s": fh_ms / 1e3, "host_table_s": t_table}))
-    print(f"one bit's {LBH_STEPS} Nesterov steps: wall {wall_ms} ms; device "
-          f"busy {busy_ms} ms under torch.profiler (idle share "
-          f"{1 - busy_ms / wall_ms if busy_ms else 'not measured'}), "
-          f"chain kernel {chain_dev} ms per launch")
+    print(f"one bit's {LBH_STEPS} Nesterov steps (median wall; device busy "
+          f"under torch.profiler, idle share 1 - busy / wall, None where "
+          f"the profiler saw no device work): " + json.dumps(bit_times))
+    del loop
 
     # -- 13. kernel layer: distances and the pipelined scan -----------------
     phase("13 kernel layer: distances and the pipelined scan")
@@ -1202,14 +1286,20 @@ def main() -> int:
 
     turns = [cuda_ms(torch, f, 20) for f in (k2, k3, k3, k2)]
     dma_ms = (turns[1] + turns[2]) / 2
-    _, prof = device_profile(torch, lambda: [f() for f in (k2, k3) * 5])
+    _, prof = device_profile(torch, lambda: [f() for f in (k2, k3) * 5],
+                             ("topk_hist_dma_kernel", "topk_hist_kernel"))
     dma_dev_ms = kernel_device_ms(prof, "topk_hist_dma_kernel")
     hist_dev_ms = kernel_device_ms(prof, "topk_hist_kernel")
     print(f"pipelined hist kernel (G={TABLES}, n={n}, B={BATCH}, l={l_k}, "
           f"pack 16), CUDA events in turns hist / dma / dma / hist: "
           f"{turns} ms; device time (torch.profiler): dma {dma_dev_ms} ms, "
-          f"hist {hist_dev_ms} ms; bound {scan_bound_ms} ms "
-          f"({scan_bound_by}); plain {scan_plain_ms} ms (phase 4)")
+          f"hist {hist_dev_ms} ms (dma / hist "
+          f"{dma_dev_ms / hist_dev_ms if dma_dev_ms and hist_dev_ms else None})"
+          f"; bound {scan_bound_ms} ms ({scan_bound_by}); plain "
+          f"{scan_plain_ms} ms (phase 4)")
+    for line in ptxas_lines(_build.build_log(SCAN_LIB),
+                            "topk_hist_dma_kernel"):
+        print(f"  ptxas {SCAN_LIB}: {line}")
     records["hamming_topk_hist_dma"] = dict(
         name="hamming_topk_hist_dma", route="cuda",
         source="src/repro_torch/kernels/csrc/hamming_topk_hist.cu",
@@ -1259,10 +1349,10 @@ def main() -> int:
                 reps)])
             check(ms > 0, f"the profiler saw {name}'s {k} device work")
             busy[k] = ms / reps
-        _, prof = device_profile(torch, lambda f=kern: [f() for _ in range(
-            reps)])
         frag = ("distance_batch_kernel" if name == "hamming_distance_batch"
                 else "distance_kernel")
+        _, prof = device_profile(torch, lambda f=kern: [f() for _ in range(
+            reps)], (frag,))
         busy["kernel"] = kernel_device_ms(prof, frag)
         check(busy["kernel"] is not None, f"the profiler saw {name}")
         dist_times[name] = {"events": ev, "device": busy}
@@ -1340,14 +1430,15 @@ def main() -> int:
         check(bool((r <= 1.0).all()),
               f"{name} at d = {ng_d}: every differing bit lies within the "
               f"near-zero bound")
+        # calls of milliseconds: the events are the device's time.  The
+        # profiler is kept off them: its sessions over these launches come
+        # back without kernel records, and the sessions after them too.
         k_ms = cuda_ms(torch, kern, 5)
         p_ms = cuda_ms(torch, plain, 2)
-        dev_t = profiled_ms(torch, kern, 3)
         b_ms, b_by = wide_bound(len(factors_g))
         print(f"{name} at {ng_n} x {ng_d}, k {BITS}, {len(factors_g)} "
-              f"table(s): kernel {k_ms} ms (CUDA events), device time "
-              f"{'not measured' if dev_t is None else dev_t} ms "
-              f"(torch.profiler), plain {p_ms} ms, bound {b_ms} ms ({b_by})")
+              f"table(s): kernel {k_ms} ms, plain {p_ms} ms (CUDA events "
+              f"over back-to-back calls), bound {b_ms} ms ({b_by})")
         del got, r
     del xg, ng_factors, ug, vg
     torch.cuda.empty_cache()
@@ -1382,15 +1473,27 @@ def main() -> int:
             check(torch.equal(kd, pd) and torch.equal(ki, pi),
                   f"W={wv} {name}: l = block_n = 8192 equals the plain "
                   f"version")
-        times = {}
-        for name, kern in (("hist", hamming_topk_hist),
-                           ("argmin", hamming_topk_fused),
-                           ("hist_dma", hamming_topk_hist_dma)):
-            times[name] = cuda_ms(torch, lambda kern=kern: kern(
-                codes_w, q_w, SCAN_L, 4096, act_i, "16"), 10)
+        times, dev_times = {}, {}
+        for name, kern, frag in (
+                ("hist", hamming_topk_hist, "topk_hist_kernel"),
+                ("argmin", hamming_topk_fused, "topk_fused_kernel"),
+                ("hist_dma", hamming_topk_hist_dma, "topk_hist_dma_kernel")):
+            def call(kern=kern):
+                return kern(codes_w, q_w, SCAN_L, 4096, act_i, "16")
+            times[name] = cuda_ms(torch, call, 10)
+            _, prof = device_profile(
+                torch, lambda: [call() for _ in range(5)], (frag,))
+            dev_times[name] = kernel_device_ms(prof, frag)
         print(f"W={wv} (G=2, n={rows}, B={BATCH}, l={SCAN_L}, pack 16, 5% "
               f"tombstoned), l = block_n = 8192 identical for all three; ms "
-              f"per call (CUDA events): " + json.dumps(times))
+              f"per call (CUDA events): " + json.dumps(times)
+              + "; device time (torch.profiler; null where it saw no "
+              "kernel): " + json.dumps(dev_times)
+              + f"; pipelined / hist kernel: events "
+              f"{times['hist_dma'] / times['hist']}, device "
+              + str(dev_times["hist_dma"] / dev_times["hist"]
+                    if dev_times["hist_dma"] and dev_times["hist"]
+                    else "not measured"))
         del codes_w, q_w, act_w, act_i
 
     # -- 16. times ----------------------------------------------------------
@@ -1408,6 +1511,8 @@ def main() -> int:
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(f"profiler sessions repeated for missing kernel records: "
+          f"{len(PROFILE_REPEATS)} " + json.dumps(PROFILE_REPEATS))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,11 +13,16 @@ solved one bit at a time against the residue R_{j-1} = kS - sum_{j'<j} b b^T
 with phi(x) = 2/(1+e^-x) - 1 = tanh(x/2), minimised by Nesterov-accelerated
 gradient descent warm-started at BH random projections.
 
-The gradient of g~ comes from autograd, as in the JAX package, but its
-backward is the fused chain kernel (``kernels.ops.lbh_chain``: a CUDA
-kernel on the card, its plain version on the CPU).  torch cannot replay
-jax.random, so the warm start and the sample are inputs; the port's own
-are seeded BH factors and a ``torch.Generator`` sample (``sample_rows``).
+On the CPU a bit's steps run eagerly, the gradient of g~ from autograd as
+in the JAX package, its backward the fused chain (``kernels.ops.lbh_chain``:
+the plain version there).  On the card they run as one CUDA graph
+(``BitLoop``), the counterpart of the reference's ``jit`` of a
+``lax.scan``: captured once per ``learn_lbh`` call and replayed once per
+bit, its step body computing the same gradient explicitly
+(``surrogate_grad``, with the chain kernel in the middle), so the graph
+holds no autograd.  torch cannot replay jax.random, so the warm start and
+the sample are inputs; the port's own are seeded BH factors and a
+``torch.Generator`` sample (``sample_rows``).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.functions import LBHHash, _sgn, strict_fp32
-from repro_torch.kernels import ops
+from repro_torch.kernels import lbh_grad, ops
 
 # Rows of x_m whose |cos| row against x_all is held at once by
 # auto_thresholds: 64 rows x 1.06M columns is 271 MB.
@@ -88,6 +93,21 @@ def similarity_matrix(x_m: torch.Tensor, t1: float,
 # Per-bit surrogate optimisation
 # ---------------------------------------------------------------------------
 
+def _projections(uv, x_m):
+    """(p, q) = (X u, X v) of the stacked uv = [u; v]."""
+    d = x_m.shape[1]
+    with strict_fp32():
+        return x_m @ uv[:d], x_m @ uv[d:]
+
+
+def _cost(uv, x_m, r):
+    """(g~(uv), p, q): the surrogate (eq. 16) and its two projections."""
+    p, q = _projections(uv, x_m)
+    with strict_fp32():
+        b = torch.tanh(0.5 * p * q)
+        return -(b @ (r @ b)), p, q
+
+
 class SurrogateCost(torch.autograd.Function):
     """g~(u, v) = -b~^T R b~ (eq. 16) of the stacked uv = [u; v], with the
     eq.-18 gradient from the fused chain.  R must be symmetric (it is:
@@ -95,22 +115,21 @@ class SurrogateCost(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, uv, x_m, r):
-        d = x_m.shape[1]
-        with strict_fp32():
-            p = x_m @ uv[:d]
-            q = x_m @ uv[d:]
-            b = torch.tanh(0.5 * p * q)
-            cost = -(b @ (r @ b))
+        cost, p, q = _cost(uv, x_m, r)
         ctx.save_for_backward(x_m, r, p, q)
         return cost
 
     @staticmethod
     def backward(ctx, grad_cost):
         x_m, r, p, q = ctx.saved_tensors
-        sq, sp = ops.lbh_chain(p, q, r)
-        with strict_fp32():
-            g = -torch.cat([sq @ x_m, sp @ x_m])
-        return grad_cost * g, None, None
+        return grad_cost * _chain_grad(x_m, r, p, q), None, None
+
+
+def _chain_grad(x_m, r, p, q):
+    """-[X^T (s q); X^T (s p)] (eq. 18) from the projections p, q."""
+    sq, sp = ops.lbh_chain(p, q, r)
+    with strict_fp32():
+        return -torch.cat([sq @ x_m, sp @ x_m])
 
 
 def surrogate_cost(uv: torch.Tensor, x_m: torch.Tensor,
@@ -119,35 +138,146 @@ def surrogate_cost(uv: torch.Tensor, x_m: torch.Tensor,
     return SurrogateCost.apply(uv, x_m, r)
 
 
-def _nesterov_bit(u0, v0, x_m, r, steps: int, lr: float):
+def surrogate_grad(uv: torch.Tensor, x_m: torch.Tensor,
+                   r: torch.Tensor) -> torch.Tensor:
+    """The gradient of g~ at uv, computed explicitly: what
+    ``SurrogateCost.backward`` returns, the same operations in the same
+    order, without autograd."""
+    return _chain_grad(x_m, r, *_projections(uv, x_m))
+
+
+def _momentum(steps: int) -> list[float]:
+    """Nesterov's momentum mu_k = (t_k - 1) / t_{k+1} for each step, from
+    t_0 = 1 in float32 on the host, as JAX's runs in float32.  It does not
+    depend on the data."""
+    t = np.float32(1.0)
+    mus = []
+    for _ in range(steps):
+        t_next = np.float32(0.5) * (np.float32(1.0) + np.sqrt(
+            np.float32(1.0) + np.float32(4.0) * t * t))
+        mus.append(float((t - np.float32(1.0)) / t_next))
+        t = t_next
+    return mus
+
+
+def nesterov_step(x, x_prev, mu: float, lr: float, best, best_c, x_m, r):
+    """One step of the reference's scan body (JAX ``_nesterov_bit``'s
+    ``body``) with the explicit gradient: returns (x_new, cost at x_new,
+    best, best_c), the best iterate kept on the device."""
+    y = x + mu * (x - x_prev)
+    x_new = y - lr * surrogate_grad(y, x_m, r)
+    c = _cost(x_new, x_m, r)[0]
+    better = c < best_c
+    return (x_new, c, torch.where(better, x_new, best),
+            torch.where(better, c, best_c))
+
+
+class BitLoop:
+    """One bit's ``steps`` Nesterov steps on the card as one CUDA graph.
+
+    Captured once (at construction) over static buffers: the warm start
+    ``uv0``, the residue ``r`` (both copied in before each replay, so the
+    caller's tensors are never written), the sample ``x_m`` (read in
+    place: it must stay alive and unchanged), the momentum schedule and
+    ``lr`` baked in.  ``run`` replays it and returns copies of the best
+    iterate and the (steps,) costs.  One eager step on a side stream warms
+    cuBLAS up first; its chain launch counts in
+    ``lbh_chain.warmup_launches``, and each replay adds the graph's
+    captured launches to ``lbh_chain.launches``.  A failed capture raises.
+    ``BitLoop.captures`` counts the captures made (the port's counterpart
+    of the reference's jit trace counter).
+    """
+
+    captures = 0
+
+    def __init__(self, x_m: torch.Tensor, steps: int, lr: float):
+        if x_m.device.type != "cuda":
+            raise ValueError(f"BitLoop runs on a CUDA device, got "
+                             f"{x_m.device}")
+        m, d = x_m.shape
+        self.x_m, self.d = x_m, d
+        self.uv0 = torch.zeros(2 * d, dtype=torch.float32, device=x_m.device)
+        self.r = torch.zeros((m, m), dtype=torch.float32, device=x_m.device)
+        mus, lr = _momentum(steps), float(np.float32(lr))
+        main = torch.cuda.current_stream(x_m.device)
+        side = torch.cuda.Stream(x_m.device)
+        side.wait_stream(main)
+        self.graph = torch.cuda.CUDAGraph()
+        captured = lbh_grad.lbh_chain.captured
+        # capture_begin / capture_end rather than the torch.cuda.graph
+        # context, which first collects garbage and empties the allocator's
+        # cache (seconds in a process that holds a large heap); a capture
+        # that only this thread's calls can break, so that other threads
+        # (a serving front end) keep using the card meanwhile
+        with torch.cuda.stream(side), torch.no_grad():
+            with lbh_grad.warming_up():
+                _loop(self.uv0, x_m, self.r, mus[:1], lr)
+            side.synchronize()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.best, self.costs = _loop(self.uv0, x_m, self.r, mus, lr)
+            finally:
+                self.graph.capture_end()
+        main.wait_stream(side)
+        self.chain_launches = lbh_grad.lbh_chain.captured - captured
+        BitLoop.captures += 1
+
+    def run(self, u0: torch.Tensor, v0: torch.Tensor, r: torch.Tensor):
+        """(u, v, costs (steps,)) of one bit from warm start (u0, v0)
+        against residue r: one replay."""
+        with torch.no_grad():
+            self.uv0[:self.d].copy_(u0)
+            self.uv0[self.d:].copy_(v0)
+            self.r.copy_(r)
+        self.graph.replay()
+        lbh_grad.lbh_chain.launches += self.chain_launches
+        best = self.best.clone()
+        return best[:self.d], best[self.d:], self.costs.clone()
+
+
+def _loop(uv0, x_m, r, mus, lr):
+    """The steps of one bit (one per entry of mus) as straight-line
+    device work: (best iterate, (len(mus),) costs)."""
+    best_c = _cost(uv0, x_m, r)[0]
+    x, x_prev, best = uv0, uv0, uv0
+    costs = []
+    for mu in mus:
+        x_new, c, best, best_c = nesterov_step(x, x_prev, mu, lr, best,
+                                               best_c, x_m, r)
+        costs.append(c)
+        x, x_prev = x_new, x
+    return best, (torch.stack(costs) if costs else best_c.new_empty((0,)))
+
+
+def _nesterov_bit(u0, v0, x_m, r, steps: int, lr: float,
+                  loop: BitLoop | None = None):
     """Nesterov's accelerated gradient on g~ for one bit (fixed R).
 
     Returns (u, v, costs (steps,)): the best iterate seen (g~ is
     nonconvex), chosen on the device with ``torch.where``, so the loop
-    makes no host sync.  The momentum schedule t_k does not depend on the
-    data; it runs in float32 on the host, as JAX's runs in float32.
+    makes no host sync.  With ``loop`` (a ``BitLoop`` captured for these
+    x_m, steps and lr) the steps run as one replay of its graph; without,
+    eagerly, the gradient from autograd.
     """
+    if loop is not None:
+        return loop.run(u0, v0, r)
     uv0 = torch.cat([u0, v0])
     with torch.no_grad():
         best_c = surrogate_cost(uv0, x_m, r)
     x, x_prev, best = uv0, uv0, uv0
-    t = np.float32(1.0)
-    lr = np.float32(lr)
+    lr = float(np.float32(lr))
     costs = []
-    for _ in range(steps):
-        t_next = np.float32(0.5) * (np.float32(1.0) + np.sqrt(
-            np.float32(1.0) + np.float32(4.0) * t * t))
-        mu = (t - np.float32(1.0)) / t_next
-        y = (x + float(mu) * (x - x_prev)).requires_grad_(True)
+    for mu in _momentum(steps):
+        y = (x + mu * (x - x_prev)).requires_grad_(True)
         (g,) = torch.autograd.grad(surrogate_cost(y, x_m, r), y)
         with torch.no_grad():
-            x_new = y - float(lr) * g
+            x_new = y - lr * g
             c = surrogate_cost(x_new, x_m, r)
             better = c < best_c
             best = torch.where(better, x_new, best)
             best_c = torch.where(better, c, best_c)
         costs.append(c)
-        x, x_prev, t = x_new, x, t_next
+        x, x_prev = x_new, x
     d = x_m.shape[1]
     costs = torch.stack(costs) if costs else best_c.new_empty((0,))
     return best[:d], best[d:], costs
@@ -172,7 +302,8 @@ def learn_lbh(x_m: torch.Tensor, k: int, u0: torch.Tensor, v0: torch.Tensor,
     (the JAX package draws them as its BH baseline from the same key; the
     port's own are ``functions.seeded_projections``).  If t1/t2 are None
     they come from the paper's 5% rule against x_all (or x_m itself).
-    All tensors on one device; the per-bit loops make no host sync.
+    All tensors on one device; the per-bit loops make no host sync.  On a
+    CUDA device the k bits replay one ``BitLoop`` captured here.
     """
     x_m = x_m.to(torch.float32)
     if t1 is None or t2 is None:
@@ -182,9 +313,11 @@ def learn_lbh(x_m: torch.Tensor, k: int, u0: torch.Tensor, v0: torch.Tensor,
     rnorms = [torch.linalg.vector_norm(r)]
     # lr scaling: g~ gradients grow with m; normalise for stable steps.
     lr_eff = lr / x_m.shape[0]
+    loop = (BitLoop(x_m, steps, lr_eff) if x_m.device.type == "cuda" and k
+            else None)
     for j in range(k):
         u, v, cost_j = _nesterov_bit(u0[:, j], v0[:, j], x_m, r, steps,
-                                     lr_eff)
+                                     lr_eff, loop)
         with strict_fp32():
             b = _sgn((x_m @ u) * (x_m @ v)).to(torch.float32)
         r = r - torch.outer(b, b)

@@ -4,6 +4,8 @@
 //
 // For one (group, row block of block_n rows) and a chunk of at most
 // kQueries of the group's queries, a block of kThreads threads
+// (kernel 3: A as its own slab_distances, B-E by a warp group of a larger
+// block on its own barrier)
 //
 //   A. computes every (row, query) distance exactly once (stage_distances):
 //      each thread XORs 4 rows' code words, loaded once, against the
@@ -60,6 +62,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kQueries = 8;             // the largest query chunk
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr size_t kMaxSmem = 232448;     // 227 KB per block on sm_90
+
+// The threads of one select: a whole block of kThreads (kernels 2 and 5),
+// or one warp group of kThreads in a larger block (kernel 3), which waits
+// on its own named barrier (1 + its index; barrier 0 is __syncthreads').
+struct WholeBlock {
+  __device__ __forceinline__ int warp() const { return threadIdx.x >> 5; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+struct WarpGroup {
+  int index;
+  __device__ __forceinline__ int warp() const {
+    return (threadIdx.x >> 5) % kWarps;
+  }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(index + 1), "n"(kThreads)
+                 : "memory");
+  }
+};
 
 // Entries of the distance tile are bytes while every distance and the
 // dead marker 0xFF fit apart.
@@ -226,18 +247,18 @@ __device__ __forceinline__ void stage_distances(
 }
 
 // B-E for the chunk whose first query's output starts at obase0
-// (((g * grid_n + blk) * nq + b0) * l_k).  Every thread of the block calls
-// it (it holds block barriers); the caller syncs before reusing the
-// shared memory.
+// (((g * grid_n + blk) * nq + b0) * l_k).  Every thread of the block (or
+// of the warp group grp) calls it (it holds their barriers); the caller
+// syncs before reusing the shared memory.
 template <bool kDistOrder, typename U, int kBits, bool kWide, typename DT,
-          typename IT>
+          typename IT, typename Grp = WholeBlock>
 __device__ __forceinline__ void select_chunk(
     const U* tile, int* seg_all, uint16_t* ids_all, uint32_t* hist_all,
     int nqc, int n_units, int w, int l_k, int block_n,
     DT* __restrict__ out_d, IT* __restrict__ out_i, int64_t obase0,
-    int d_sent) {
+    int d_sent, Grp grp = Grp{}) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int warp = grp.warp();
   const unsigned below = (1u << lane) - 1u;
   int qp2 = 1;
   while (qp2 < nqc) qp2 <<= 1;
@@ -289,7 +310,7 @@ __device__ __forceinline__ void select_chunk(
       seg_all[warp * bins + b] = sum;
     }
   }
-  __syncthreads();
+  grp.sync();
 
   // C. the query's cutoff from its segments' bins; D. this segment's kept
   // rows into ids, in row order
@@ -364,7 +385,7 @@ __device__ __forceinline__ void select_chunk(
       }
     }
   }
-  __syncthreads();
+  grp.sync();
   if (!mine) return;
 
   // E. the query's t kept rows, in row order in ids, to the output

@@ -10,10 +10,20 @@ after which grad_u = -X^T (s*q), grad_v = -X^T (s*p).  The kernel
 (csrc/lbh_chain.cu) replaces the TPU kernel ``lbh_chain_kernel``
 (src/repro/kernels/lbh_grad.py:44): it reads R once and keeps b, R b and s
 on chip.
+
+Launch accounting.  ``lbh_chain.launches`` counts the kernel's runs on
+the device: one per eager call, and for a CUDA graph, per replay, the
+launches captured into it (``core.learning.BitLoop`` adds them).  A call
+made while the current stream is capturing records a launch instead of
+running one and counts in ``lbh_chain.captured``; a call inside
+``warming_up()`` (the eager step that precedes a capture) counts in
+``lbh_chain.warmup_launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -22,7 +32,6 @@ from repro_torch.kernels.ref import lbh_chain_ref
 
 LIBRARY = "lbh_chain"
 _SIGNATURES = {
-    "lbh_chain_fits": (ctypes.c_int, [ctypes.c_int]),
     "lbh_chain_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                          + [ctypes.c_int, ctypes.c_void_p]),
 }
@@ -39,7 +48,7 @@ def lbh_chain(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor):
     contiguous float32 on one device.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``lbh_chain.launches``) or raises.
+    (and counts the launch: see the module's launch accounting) or raises.
     """
     if p.device.type == "cpu":
         return lbh_chain_plain(p, q, r)
@@ -57,17 +66,35 @@ def lbh_chain(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor):
     if m == 0:
         return sq, sp
     lib = _build.load(LIBRARY, _SIGNATURES)
-    if not lib.lbh_chain_fits(m):
-        raise ValueError(f"m = {m}: b does not fit one block's shared "
-                         f"memory")
     with torch.cuda.device(p.device):
         err = lib.lbh_chain_launch(
             p.data_ptr(), q.data_ptr(), r.data_ptr(), sq.data_ptr(),
             sp.data_ptr(), m, torch.cuda.current_stream(p.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lbh_chain launch failed: CUDA error {err}")
-    lbh_chain.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        lbh_chain.captured += 1
+    elif getattr(_warmup, "depth", 0):
+        lbh_chain.warmup_launches += 1
+    else:
+        lbh_chain.launches += 1
     return sq, sp
 
 
-lbh_chain.launches = 0
+lbh_chain.launches = 0          # runs on the device (eager and replayed)
+lbh_chain.captured = 0          # launches recorded into CUDA graphs
+lbh_chain.warmup_launches = 0   # eager launches that warm up a capture
+
+_warmup = threading.local()
+
+
+@contextlib.contextmanager
+def warming_up():
+    """Count this thread's eager chain launches in
+    ``lbh_chain.warmup_launches`` instead of ``lbh_chain.launches`` (the
+    warm-up before a capture)."""
+    _warmup.depth = getattr(_warmup, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _warmup.depth -= 1

@@ -223,6 +223,33 @@ def test_dma_scan_kernel_vs_plain(cuda, pack, g, n, w, b, l, dead):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _dma_edge_cases():
+    """(w, b, pack) of the pipelined scan's edge test: packs none/16/8
+    where the pack holds 32 W (pack 8 only while W <= 7)."""
+    return [(w, b, pack) for w in (1, 2, 3, 13, 32) for b in (1, 8, 33)
+            for pack in ("none", "16", "8") if pack != "8" or w <= 7]
+
+
+@pytest.mark.parametrize("w,b,pack", _dma_edge_cases())
+def test_dma_scan_bulk_copy_edges(cuda, w, b, pack):
+    """The pipelined kernel's bulk copies at their edges: two groups of
+    n = 13,001 rows (odd, so n W % 4 != 0 for every W but 32, and the
+    second group's codes start off a 16-byte boundary), a partial last
+    row block, 5% tombstones, one query, one chunk and a chunk of one
+    past 32: equal to the plain version and the hist kernel bit for
+    bit."""
+    n = 13_001
+    codes, q, act = _scan_inputs(cuda, 2, n, w, b, 0.05, seed=w * 100 + b)
+    before = hamming_topk_hist_dma.launches
+    kd, ki = hamming_topk_hist_dma(codes, q, 100, 4096, act, pack)
+    torch.cuda.synchronize()
+    assert hamming_topk_hist_dma.launches == before + 1
+    pd, pi = hamming_topk_hist_plain(codes, q, 100, 4096, act, pack)
+    hd, hi = hamming_topk_hist(codes, q, 100, 4096, act, pack)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kd, hd) and torch.equal(ki, hi)
+
+
 def test_dma_scan_refuses_two_tiles_that_do_not_fit(cuda):
     """W = 4 at block_n = 8192, the shape whose two whole code tiles once
     did not fit a block: the pipelined kernel now streams sub-tiles, so it
@@ -353,8 +380,12 @@ def test_factor_hash_kernel_vs_plain(cuda, n, d, k):
     assert (ratios <= 1.0).all(), ratios.max()
 
 
-@pytest.mark.parametrize("m", [1, 100, 777, 1000, 4096])
+@pytest.mark.parametrize("m", [1, 3, 100, 777, 1000, 1001, 4096, 4099])
 def test_lbh_chain_kernel_vs_plain(cuda, m):
+    """Every element within the chain's rounding bound of the plain
+    version, at m % 4 == 0 (16-byte rows) and not, one chunk of 1,024
+    columns and several; a second run gives the same bits (one fixed
+    summation order per row)."""
     rng = np.random.default_rng(m)
     p, q = (torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(cuda)
             for _ in range(2))
@@ -367,6 +398,8 @@ def test_lbh_chain_kernel_vs_plain(cuda, m):
     for g, w, b in zip(got, lbh_chain_plain(p, q, r),
                        lbh_chain_bound(p, q, r)):
         assert ((g - w).abs() <= b).all()
+    again = lbh_chain(p, q, r)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_nesterov_bit_makes_no_host_sync(cuda):
@@ -388,6 +421,55 @@ def test_nesterov_bit_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert lbh_chain.launches == before + 10
     assert costs.shape == (10,) and torch.isfinite(costs).all()
+
+
+@pytest.mark.parametrize("m,d,steps", [(200, 40, 10), (1000, 385, 150)])
+def test_graphed_nesterov_bit_equals_eager(cuda, m, d, steps):
+    """A bit's steps replayed from one CUDA graph give the eager loop's
+    best iterate and costs bit for bit, twice in a row (the static
+    buffers take each replay's inputs); the warm-up launch counts apart,
+    each replay adds its captured launches, and the caller's r is not
+    written."""
+    from repro_torch.core import learning as TL
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(
+        cuda)
+    r = torch.from_numpy(rng.normal(size=(m, m)).astype(np.float32)).to(
+        cuda)
+    r = (r + r.T) / 2
+    r_before = r.clone()
+    lr = 0.03 / m
+    captures, warm = TL.BitLoop.captures, lbh_chain.warmup_launches
+    loop = TL.BitLoop(x, steps, lr)
+    assert TL.BitLoop.captures == captures + 1
+    assert lbh_chain.warmup_launches == warm + 1
+    assert loop.chain_launches == steps
+    for i in range(2):
+        u0, v0 = x[i].clone() * 0.1, x[i + 2].clone() * 0.1
+        want = TL._nesterov_bit(u0, v0, x, r, steps, lr)
+        before = lbh_chain.launches
+        got = TL._nesterov_bit(u0, v0, x, r, steps, lr, loop)
+        torch.cuda.synchronize()
+        assert lbh_chain.launches == before + steps
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(r, r_before)
+
+
+def test_learn_lbh_captures_once_per_call(cuda):
+    """learn_lbh on the card captures one graph for its 20 bits and
+    replays it once per bit."""
+    from repro_torch.core import learning as TL
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(300, 65)).astype(np.float32)).to(
+        cuda)
+    u0, v0 = seeded_projections(7, 65, 20, cuda)
+    captures, chain0 = TL.BitLoop.captures, lbh_chain.launches
+    res = TL.learn_lbh(x, 20, u0, v0, steps=12)
+    torch.cuda.synchronize()
+    assert TL.BitLoop.captures == captures + 1
+    assert lbh_chain.launches - chain0 == 20 * 12
+    assert res.bit_costs.shape == (20, 12)
+    assert torch.isfinite(res.bit_costs).all()
 
 
 def test_hyperplane_index_fits_lbh_through_both_kernels(cuda):

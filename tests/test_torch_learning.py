@@ -106,6 +106,81 @@ def test_surrogate_cost_gradient_vs_jax_value_and_grad(m, d):
     assert np.abs(gt.numpy() - gj).max() <= 1e-5 * np.abs(gj).max()
 
 
+@pytest.mark.parametrize("m,d", [(48, 16), (200, 33)])
+def test_explicit_gradient_vs_jax_value_and_grad(m, d):
+    """The gradient the card's graphed step body computes (no autograd)
+    against JAX's value_and_grad of the surrogate, at 1e-5 of its largest
+    entry, and equal bit for bit to the port's autograd gradient (the same
+    operations in the same order)."""
+    rng = np.random.default_rng(m + 1)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    uv = rng.normal(size=(2 * d,)).astype(np.float32) * 0.3
+    r = _symmetric(rng, m)
+    _, gj = jax.value_and_grad(JL.surrogate_cost)(
+        jnp.asarray(uv), jnp.asarray(x), jnp.asarray(r))
+    gj = np.asarray(gj)
+    gt = TL.surrogate_grad(_t(uv), _t(x), _t(r))
+    assert np.abs(gt.numpy() - gj).max() <= 1e-5 * np.abs(gj).max()
+    y = _t(uv).requires_grad_(True)
+    (ga,) = torch.autograd.grad(TL.surrogate_cost(y, _t(x), _t(r)), y)
+    assert torch.equal(gt, ga)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 3])
+def test_nesterov_step_vs_jax_scan_body(steps):
+    """The step the CUDA graph records (``nesterov_step``), chained from
+    the warm start with the port's momentum schedule, against the same
+    number of steps of JAX's scan body (``_nesterov_bit`` with that
+    length): the best iterate and each step's cost at 1e-5 relative."""
+    x = _clustered(8, n=64, d=20)
+    m, d = x.shape
+    t1, t2 = JL.auto_thresholds(jnp.asarray(x), jnp.asarray(x))
+    r = 6 * np.asarray(JL.similarity_matrix(jnp.asarray(x), t1, t2))
+    rng = np.random.default_rng(9)
+    u0 = rng.normal(size=(d,)).astype(np.float32)
+    v0 = rng.normal(size=(d,)).astype(np.float32)
+    lr = 0.03 / m
+    uj, vj, cj = JL._nesterov_bit(jnp.asarray(u0), jnp.asarray(v0),
+                                  jnp.asarray(x), jnp.asarray(r), steps, lr)
+    xt, rt = _t(x), _t(r)
+    uv0 = torch.cat([_t(u0), _t(v0)])
+    best_c = TL._cost(uv0, xt, rt)[0]
+    xk, x_prev, best, costs = uv0, uv0, uv0, []
+    for mu in TL._momentum(steps):
+        x_new, c, best, best_c = TL.nesterov_step(
+            xk, x_prev, mu, float(np.float32(lr)), best, best_c, xt, rt)
+        costs.append(c.item())
+        xk, x_prev = x_new, xk
+    want = np.concatenate([np.asarray(uj), np.asarray(vj)])
+    assert np.abs(best.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    cj = np.asarray(cj)
+    assert np.abs(np.array(costs) - cj).max() <= 1e-5 * np.abs(cj).max()
+
+
+@pytest.mark.parametrize("steps", [0, 1, 25])
+def test_graph_body_equals_eager_loop(steps):
+    """The straight-line body a ``BitLoop`` captures (``_loop``), run
+    eagerly on the CPU, gives the eager autograd loop's best iterate and
+    costs bit for bit."""
+    x = _clustered(10)
+    m, d = x.shape
+    rng = np.random.default_rng(11)
+    r = _t(_symmetric(rng, m))
+    u0 = _t(rng.normal(size=(d,)))
+    v0 = _t(rng.normal(size=(d,)))
+    lr = 0.03 / m
+    u, v, costs = TL._nesterov_bit(u0, v0, _t(x), r, steps, lr)
+    best, costs_g = TL._loop(torch.cat([u0, v0]), _t(x), r,
+                             TL._momentum(steps), float(np.float32(lr)))
+    assert torch.equal(best, torch.cat([u, v]))
+    assert costs_g.shape == (steps,) and torch.equal(costs_g, costs)
+
+
+def test_bit_loop_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA"):
+        TL.BitLoop(_t(_clustered(12)), 5, 0.01)
+
+
 def test_nesterov_bit_vs_jax_given_warm_start():
     x = _clustered(3)
     m, d = x.shape

@@ -11,6 +11,10 @@ that both give the same block-local output bit for bit, and times each
 kernel at the shapes of its paths (1,060,000 rows of 20-bit codes from
 ``--seed``, pack 16) in the order baseline, this tree, this tree, baseline:
 CUDA events over back-to-back launches and the profiler's device time.
+The pipelined kernel (``topk_hist_dma``) is timed at the serving shape, at
+B = 1 and, beside the hist kernel, at wide codes (W = 13 and 32: two
+groups of 100,000 rows, B = 32, 5% tombstones), where its time is held
+against the hist kernel's.
 Both libraries take the same C arguments (``topk_*_launch``).  The last
 line is a JSON record of the times and the card.
 """
@@ -90,6 +94,17 @@ def main() -> int:
             codes[:, -20_000:].contiguous(), queries, 128,
             act5[-20_000:].contiguous()),
     }
+    act_w = torch.from_numpy(
+        (rng.random(100_000) >= 0.05).astype(np.int32)).to(dev)
+    for w in (13, 32):
+        shapes[f"W={w}, 5% tombstoned"] = (
+            t(rng.integers(0, 2**32, (2, 100_000, w), dtype=np.uint32)),
+            t(rng.integers(0, 2**32, (2, BATCH, w), dtype=np.uint32)), 128,
+            act_w)
+    # the shapes each kernel is timed at (kernel 3: its own path's and the
+    # wide codes, where it is held against kernel 2)
+    dma_shapes = ("serving", "LBH query_scan", "W=13, 5% tombstoned",
+                  "W=32, 5% tombstoned")
 
     def launcher(lib, prefix, c, qc, l, act):
         g, n, w = c.shape
@@ -115,7 +130,8 @@ def main() -> int:
     for name, entries in KERNELS.items():
         for prefix, frag in entries:
             for shape, (c, qc, l, act) in shapes.items():
-                if prefix == "topk_hist_dma" and shape != "serving":
+                if (shape not in dma_shapes if prefix == "topk_hist_dma"
+                        else prefix == "topk_fused" and shape.startswith("W=")):
                     continue
                 runs = {lab: launcher(libs[(lab, name)], prefix, c, qc, l,
                                       act) for lab in ("baseline", "this")}
