@@ -40,6 +40,22 @@ hyperplane-hashing literature reports) through both hash kernels, and
 codes of W = 13 and 32 words through the three scan kernels, each against
 its plain version.
 
+Then two more paths at full size:
+
+- online refresh: the streaming path's index and front end take the
+  labelled rows and the deletes, then ``refresh(wait=False)`` re-learns LBH
+  for the 4 tables on its worker thread (each table's bits one CUDA graph
+  captured there) while micro-batches, 20,000 inserts and 1,000 deletes
+  keep flowing; checked against a fresh install over the same live rows
+  with the adopted families, with recall@1 before and after and the
+  micro-batch latencies before, during and across the swap;
+- replicated shards: ``ShardReplicaRouter(shards=2, replicas=2)`` over the
+  1,000,000 unlabelled rows behind ``HashQueryService(mode="scan")``; its
+  healthy, fail-over, degraded and recovered (after 10,000 inserts and
+  5,000 deletes with a shard down) answers checked against fresh indexes
+  over the covered rows, then a ``FaultPlan.seeded`` soak of 64
+  micro-batches with writes.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  Every phase that fails stops the run with a
 non-zero exit.  The second-to-last line of its output is the kernels' JSON
@@ -70,6 +86,12 @@ LBH_SAMPLE, LBH_STEPS, RADIUS, LBH_SCAN_L = 1000, 150, 4, 256
 # the paper's second dataset at the width the hyperplane-hashing
 # literature reports for 20 Newsgroups (26,214 tf-idf features + bias)
 NG_D = 26_214
+# the refresh path: rows inserted (in batches) and deleted while the
+# refresh runs; the cluster path: micro-batches, the writes while shard 1
+# is down, and the seeded fault soak's micro-batches
+REFRESH_INSERTS, REFRESH_INSERT_ROWS, REFRESH_DELETES = 20_000, 500, 1_000
+CLUSTER_BATCHES, CLUSTER_INSERTS, CLUSTER_DELETES = 32, 10_000, 5_000
+SOAK_BATCHES = 64
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
 # cores; popcount issues 16 results per clock per SM (CUDA programming
 # guide, compute capability 9.0), at the card's maximum SM clock.
@@ -173,6 +195,19 @@ def kernel_device_ms(kernels: dict, fragment: str):
     return sum(ms for ms, _ in hits) / sum(k for _, k in hits)
 
 
+def library_hash(x, factors):
+    """Packed codes of x under materialised (u, v) factor pairs through
+    the serving path's library route (``serving.batch_query``): two
+    stacked strict-fp32 ``torch.matmul``s, the sign and the bit pack."""
+    import torch
+    from repro_torch.core.functions import _sgn, strict_fp32
+    from repro_torch.utils.bits import pack_signs
+    u = torch.stack([f[0] for f in factors])
+    v = torch.stack([f[1] for f in factors])
+    with strict_fp32():
+        return pack_signs(_sgn(torch.matmul(x, u) * torch.matmul(x, v)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -216,6 +251,8 @@ def main() -> int:
     from repro_torch.svm.linear_svm import train_ova
     from repro_torch.serving import batch_query as bq
     from repro_torch.serving.async_service import AsyncHashQueryService
+    from repro_torch.serving.cluster import ShardReplicaRouter
+    from repro_torch.serving.faults import FaultPlan
     from repro_torch.serving.lsm import LSMMultiTableIndex
     from repro_torch.serving.multi_table import MultiTableIndex
     from repro_torch.serving.service import HashQueryService
@@ -335,6 +372,17 @@ def main() -> int:
     bound_ms, bound_by = hash_bound(n)
     print(f"hash at the fit shape ({n} x {d}): kernel {hash_ms} ms, "
           f"plain {hash_plain_ms} ms, bound {bound_ms} ms ({bound_by})")
+    # the library route: the stacked strict-fp32 product the serving path
+    # takes for materialised (learned) factors, timed on these factors
+    lib_ms = cuda_ms(torch, lambda: library_hash(x, factors), 5)
+    q_lib_ms = cuda_ms(torch, lambda: library_hash(w0, factors), 50)
+    q_lib_ratios = sign_flip_ratios(w0, factors, library_hash(w0, factors),
+                                    bilinear_hash_seeded(w0, seeds, BITS))
+    check(bool((q_lib_ratios <= 1.0).all()),
+          "the library route's query codes agree within the near-zero bound")
+    print(f"library route (two torch.matmul + sign + pack, {TABLES} "
+          f"tables): fit shape {lib_ms} ms, query shape {q_lib_ms} ms "
+          f"({q_lib_ratios.numel()} query bits differ from the kernel's)")
     records["bilinear_hash_seeded"] = dict(
         name="bilinear_hash_seeded", route="cuda",
         source="src/repro_torch/kernels/csrc/bilinear_hash_seeded.cu",
@@ -342,7 +390,7 @@ def main() -> int:
         # codes are bits: the largest difference is 1 if any bit differs
         max_abs_err=int(ratios.numel() + q_ratios.numel() > 0), ms=hash_ms,
         plain_ms=hash_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
+        library_ms=lib_ms)
 
     # -- 4. scan kernels vs plain at the query shape ------------------------
     phase("4 scan kernels vs plain")
@@ -934,6 +982,10 @@ def main() -> int:
           f"{'not measured' if fh_dev_ms is None else fh_dev_ms} ms")
     fh_bound, fh_bound_by = factor_hash_bound(n)
     q_fh_bound, q_fh_bound_by = factor_hash_bound(BATCH)
+    fh_lib_ms = cuda_ms(torch, lambda: library_hash(x, [(u0, v0)]), 10)
+    q_fh_lib_ms = cuda_ms(torch, lambda: library_hash(w0, [(u0, v0)]), 50)
+    print(f"library route (two torch.matmul + sign + pack, one table): "
+          f"fit shape {fh_lib_ms} ms, query shape {q_fh_lib_ms} ms")
     print(f"factor hash at the fit shape ({n} x {d}, k {BITS}): kernel "
           f"{fh_ms} ms, plain {fh_plain_ms} ms, bound {fh_bound} ms "
           f"({fh_bound_by}); at the query shape ({BATCH} x {d}): kernel "
@@ -946,7 +998,7 @@ def main() -> int:
         # codes are bits: the largest difference is 1 if any bit differs
         max_abs_err=int(f_ratios.numel() + fq_ratios.numel() > 0), ms=fh_ms,
         plain_ms=fh_plain_ms, bound_ms=fh_bound, bound_by=fh_bound_by,
-        library_ms=None)
+        library_ms=fh_lib_ms)
 
     # -- 9. LBH chain kernel vs plain at the learner's shapes --------------
     phase("9 LBH chain kernel vs plain")
@@ -1496,8 +1548,381 @@ def main() -> int:
                     else "not measured"))
         del codes_w, q_w, act_w, act_i
 
-    # -- 16. times ----------------------------------------------------------
-    phase("16 times")
+    # -- 16. refresh path: re-learn and generation swap under traffic ------
+    phase("16 refresh path")
+    rcfg = IndexConfig(method="bh", bits=BITS, tables=TABLES, batch=BATCH,
+                       lsm_delta_threshold=0.02, refresh_method="lbh")
+    rrng = np.random.default_rng(args.seed + 3)
+    r_base_del = np.array_split(
+        rrng.choice(x_base.shape[0], BASE_DELETES, replace=False),
+        STREAM_BATCHES)
+    # rows that arrive while the refresh runs: perturbed copies of base
+    # rows, made in bulk here (set-up)
+    r_extra = (x_base[rrng.choice(x_base.shape[0], REFRESH_INSERTS,
+                                  replace=False)]
+               + np.float32(0.01) * rrng.standard_normal(
+                   (REFRESH_INSERTS, d), dtype=np.float32))
+    r_extra = np.split(r_extra, REFRESH_INSERTS // REFRESH_INSERT_ROWS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    r_excluded = dict.fromkeys(read_counts(), 0)
+    captures0 = learning.BitLoop.captures
+    rlsm = LSMMultiTableIndex(rcfg, device="cuda").fit(x_base)
+    rsvc = AsyncHashQueryService(rlsm, mode="scan", scan_l=SCAN_L,
+                                 deadline_ms=2.0)
+    mgr = rsvc.service.refresher
+    # the calls the refresh makes, timed, to split its swap pause
+    r_parts = []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                r_parts.append((name, time.perf_counter() - t))
+        return run
+
+    mgr._catchup_round = timed("catch-up", mgr._catchup_round)
+    mgr._reconcile_deletes = timed("reconcile", mgr._reconcile_deletes)
+    rlsm._adopt_refresh = timed("adopt", rlsm._adopt_refresh)
+    r_lat = {"before": [], "during": [], "after": []}
+    r_across = []
+    r_nq = [0]
+
+    def generation():
+        with rlsm._lock:
+            return rlsm.generation
+
+    def r_batch(when):
+        """One micro-batch through the async front end; records its
+        latency under when, and apart if the swap fell inside it."""
+        k = (r_nq[0] % args.batches) * BATCH
+        r_nq[0] += 1
+        g0 = generation()
+        t = time.perf_counter()
+        res = [f.result(timeout=300)
+               for f in [rsvc.submit(w) for w in ws[k:k + BATCH]]]
+        lat = time.perf_counter() - t
+        r_lat[when].append(lat)
+        if generation() != g0:
+            r_across.append(lat)
+        return res
+
+    def excluded(fn):
+        """Run a check's fn with its kernel launches kept out of the
+        path's counts (nothing else launches meanwhile)."""
+        c0 = read_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            r_excluded[k] += v - c0[k]
+        return out
+
+    def recall_at_1():
+        """recall@1 of the index's answers for wq against the exhaustive
+        scan over its live rows."""
+        with rlsm._lock:
+            live = rlsm.active.copy()
+            xl = rlsm.x_np[live].copy()
+            il = rlsm.ids_np[live].copy()
+        res = rlsm.query_scan_batch(wq, l=SCAN_L)
+        wt = torch.from_numpy(wq).to(dev)
+        xt = torch.from_numpy(xl).to(dev)
+        with strict_fp32():
+            best = ((xt @ wt.T).abs() / torch.linalg.vector_norm(
+                wt, dim=1)).argmin(0).cpu().numpy()
+        del xt
+        return float((res.ids == il[best]).mean())
+
+    rlsm.start_compactor()
+    try:
+        for i in range(STREAM_BATCHES):
+            ids = rsvc.submit_insert(x_new[i * per:(i + 1) * per]).result(
+                timeout=300)
+            rsvc.submit_delete(r_base_del[i]).result(timeout=300)
+            rsvc.submit_delete(rrng.choice(ids, new_del[i], replace=False)
+                               ).result(timeout=300)
+            for _ in range(2):
+                r_batch("before")
+        recall_before = excluded(recall_at_1)
+        gen0 = generation()
+        with rlsm._lock:
+            ids_before = rlsm.ids_np[rlsm.active].copy()
+        # deleted while the refresh runs: the swap must reconcile them
+        r_dead = rrng.choice(ids_before, REFRESH_DELETES, replace=False)
+        check(rsvc.refresh(wait=False, warm_batches=(BATCH,),
+                           warm_l=SCAN_L), "the refresh started")
+        t_refresh = time.perf_counter()
+        j = 0
+        while mgr.stats()["busy"]:
+            r_batch("during")
+            if j < len(r_extra):
+                rsvc.submit_insert(r_extra[j]).result(timeout=300)
+                if j == 0:
+                    rsvc.submit_delete(r_dead).result(timeout=300)
+                j += 1
+        mgr.wait_idle(600)
+        refresh_wall_s = time.perf_counter() - t_refresh
+        hist_at_swap = hamming_topk_hist.launches
+        for _ in range(16):
+            r_batch("after")
+        torch.cuda.synchronize()
+    finally:
+        rlsm.stop_compactor()
+    refresh_launches = {k: v - r_excluded[k] for k, v in read_counts().items()}
+    st = mgr.stats()
+    print("refresh: " + json.dumps(st))
+    # the swap's section: the last catch-up round, the reconcile and the
+    # adopt; the rest of the pause is the wait for the index lock
+    in_swap = {name: 1e3 * sec for name, sec in r_parts[-3:]}
+    in_swap["lock wait and rest"] = st["last_swap_pause_ms"] - sum(
+        in_swap.values())
+    print(f"swap pause {st['last_swap_pause_ms']} ms: " + json.dumps(in_swap)
+          + f"; catch-up rounds before it: {len(r_parts) - 3}")
+    check(st["refreshes_done"] == 1 and st["refreshes_failed"] == 0
+          and st["last_error"] is None,
+          f"the refresh completed cleanly ({st['last_error']})")
+    check(generation() == gen0 + 1, "the generation rose by one")
+    r_captures = learning.BitLoop.captures - captures0
+    print(f"launches on the refresh path (checks excluded): "
+          f"{refresh_launches}; LBH graph captures {r_captures}; kernel 2 "
+          f"launches after the swap {hamming_topk_hist.launches - hist_at_swap}"
+          f"; inserts during the refresh {j} x {REFRESH_INSERT_ROWS} rows, "
+          f"{REFRESH_DELETES} deletes; wall {refresh_wall_s:.2f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(r_captures == TABLES,
+          "the re-learn captured one LBH step loop per table")
+    check(refresh_launches["lbh_chain"] == TABLES * BITS * LBH_STEPS,
+          "one chain launch per Nesterov step of every table's bits")
+    check(refresh_launches["bilinear_hash_seeded"] > 0,
+          "the seeded hash launched before the swap")
+    check(hamming_topk_hist.launches - hist_at_swap > 0,
+          "the hist scan ran on the new generation")
+    check(st["last_catchup_rows"] > 0, "the catch-up mirrored rows")
+    check(all(type(f).__name__ == "LBHHash" for f in rlsm.families),
+          "the new generation's families are learned (LBH)")
+    # the new generation against a fresh index installed over the same
+    # live rows with the adopted families and the stable ids
+    with rlsm._lock:
+        live = rlsm.active.copy()
+        live_ids = rlsm.ids_np[live].copy()
+        x_live = rlsm.x_np[live].copy()
+        codes_live = np.stack(rlsm.codes)[:, live]
+        hi = rlsm._next_id
+        fams = list(rlsm.families)
+    fresh = LSMMultiTableIndex(rcfg, device="cuda")
+    fresh._install(x_live, fams, ids=live_ids, next_id=hi)
+    codes_fresh = np.stack(fresh.codes)
+    n_diff = int((codes_live != codes_fresh).sum())
+    if n_diff:
+        rat = sign_flip_ratios(
+            torch.from_numpy(x_live).to(dev), [(f.u, f.v) for f in fams],
+            from_numpy_u32(codes_live, dev), from_numpy_u32(codes_fresh, dev))
+        print(f"codes against the fresh install: {rat.numel()} bits differ, "
+              f"largest |proj| / rounding bound {rat.max().item()}")
+    print(f"codes of the {live.sum()} live rows equal the fresh install's: "
+          f"{n_diff == 0}")
+    check(n_diff == 0, "the swapped-in codes equal a fresh install's")
+    dl, il = rlsm.scan_table_topk(wq, l=SCAN_L)
+    df, i_f = fresh.scan_table_topk(wq, l=SCAN_L)
+    check(np.array_equal(dl, df) and np.array_equal(il, i_f),
+          "per-table lists equal the fresh install's")
+    rl = rlsm.query_scan_batch(wq, l=SCAN_L, topk=4)
+    rf = fresh.query_scan_batch(wq, l=SCAN_L, topk=4)
+    check(np.array_equal(rl.ids_topk, rf.ids_topk)
+          and all(np.array_equal(a, b)
+                  for a, b in zip(rl.candidates, rf.candidates)),
+          "answers (ids and candidates) equal the fresh install's")
+    xb = np.zeros((hi, d), np.float32)
+    xb[live_ids] = x_live
+    terms = np.abs(xb[np.clip(rf.ids_topk, 0, None)] * wq[:, None, :]).sum(-1)
+    m_tol = (d + 8) * 2.0 ** -23 * terms / np.linalg.norm(wq, axis=1)[:, None]
+    m_diff = np.abs(rl.margins_topk - rf.margins_topk)
+    check(bool((m_diff <= m_tol).all()),
+          "margins equal the fresh install's within float32 rounding")
+    print(f"the new generation equals a fresh install over {live.sum()} live "
+          f"rows: lists and ids identical, margins identical: "
+          f"{bool((m_diff == 0).all())}")
+    still = np.setdiff1d(ids_before, r_dead)
+    check(bool(rlsm.active[rlsm.ids_to_rows(still)].all()),
+          "every stable id handed out before the refresh still resolves")
+    with rlsm._lock:      # tombstoned, or folded out by a compaction since
+        rows_dead = rlsm._row_of[r_dead]
+        dead_gone = bool((~rlsm.active[np.clip(rows_dead, 0, None)]
+                          | (rows_dead < 0)).all())
+    check(dead_gone, "rows deleted during the refresh stay deleted")
+    recall_after = recall_at_1()
+
+    def lat_stats(a):
+        a = np.asarray(a) * 1e3
+        return ({"batches": int(a.size), "p95_ms": float(np.quantile(a, 0.95)),
+                 "max_ms": float(a.max())} if a.size else None)
+
+    refresh_stats = {
+        "recall_at_1_before": recall_before,
+        "recall_at_1_after": recall_after,
+        "last_learn_s": st["last_learn_s"],
+        "last_build_s": st["last_build_s"],
+        "last_swap_pause_ms": st["last_swap_pause_ms"],
+        "last_catchup_rows": st["last_catchup_rows"],
+        "last_refresh_s": st["last_refresh_s"],
+        **{f"micro_batch_{k}": lat_stats(v) for k, v in r_lat.items()},
+        "micro_batch_across_swap_max_ms": (1e3 * max(r_across)
+                                           if r_across else None),
+        "compactions": rlsm.compactions}
+    print("refresh path: " + json.dumps(refresh_stats))
+    rsvc.close()
+    del rlsm, rsvc, mgr, fresh
+    torch.cuda.empty_cache()
+
+    # -- 17. cluster path: 2 shards x 2 replicas, faults injected ----------
+    phase("17 cluster path")
+    ccfg = IndexConfig(method="bh", bits=BITS, tables=TABLES, batch=BATCH)
+    plan = FaultPlan()
+    t0 = time.perf_counter()
+    router = ShardReplicaRouter(ccfg, shards=2, replicas=2,
+                                fault_plan=plan).fit(x_base)
+    csvc = HashQueryService(router, mode="scan", scan_l=SCAN_L)
+    for s in range(2):
+        for r in range(2):
+            router.replica(s, r).upload_base()
+    torch.cuda.synchronize()
+    print(f"router fit (2 shards x 2 replicas over {x_base.shape[0]} rows, "
+          f"bases uploaded): {time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    c_lat = []
+    for i in range(CLUSTER_BATCHES):
+        k = (i % args.batches) * BATCH
+        t = time.perf_counter()
+        csvc.query_batch(ws[k:k + BATCH])
+        c_lat.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    cluster_launches = read_counts()
+    print(f"launches on the cluster path: {cluster_launches}")
+    check(cluster_launches["bilinear_hash_seeded"] == 2 * CLUSTER_BATCHES
+          and cluster_launches["hamming_topk_hist"] == 2 * CLUSTER_BATCHES,
+          "each micro-batch hashed and scanned once on each shard")
+    n_base = x_base.shape[0]
+
+    def same_as_fresh(label, res, rows, x_rows):
+        """res equals a fresh index's over x_rows (global ids rows): ids,
+        margins, candidates and table hits bit for bit."""
+        ref = MultiTableIndex(ccfg, device="cuda").fit(x_rows)
+        want = ref.query_scan_batch(wq, l=SCAN_L, topk=4)
+        same = {
+            "ids": int((res.ids_topk != np.where(
+                want.ids_topk >= 0, rows[np.clip(want.ids_topk, 0, None)],
+                -1)).sum()),
+            "margins": int((res.margins_topk != want.margins_topk).sum()),
+            "table_hits": int((res.table_hits != want.table_hits).sum()),
+            "candidate_lists": sum(
+                not np.array_equal(a, np.sort(rows[b]))
+                for a, b in zip(res.candidates, want.candidates))}
+        check(not any(same.values()),
+              f"{label}: answers equal a fresh index's over {rows.size} "
+              f"rows (entries that differ: {same}; coverage "
+              f"{res.coverage}; timeouts {router.stats()['timeouts']})")
+        print(f"{label}: coverage {res.coverage}, degraded {res.degraded}; "
+              f"identical to a fresh index over {rows.size} rows")
+        del ref
+        torch.cuda.empty_cache()
+
+    all_rows = np.arange(n_base)
+    same_as_fresh("healthy", router.query_scan_batch(wq, l=SCAN_L, topk=4),
+                  all_rows, x_base)
+    plan.kill(0, 1)
+    for _ in range(2):      # the rotation tries both replicas of shard 0
+        res = router.query_scan_batch(wq, l=SCAN_L, topk=4)
+        check(res.coverage == 1.0, "fail-over keeps full coverage")
+    same_as_fresh("fail-over (shard 0 replica 1 killed)", res, all_rows,
+                  x_base)
+    plan.kill(1, 0)
+    plan.kill(1, 1)
+    res = router.query_scan_batch(wq, l=SCAN_L, topk=4)
+    check(res.degraded and 0 < res.coverage < 1, "shard 1 down: degraded")
+    same_as_fresh("degraded (shard 1 down)", res, all_rows[0::2],
+                  x_base[0::2])
+    crng = np.random.default_rng(args.seed + 4)
+    c_extra = (x_base[crng.choice(n_base, CLUSTER_INSERTS, replace=False)]
+               + np.float32(0.01) * crng.standard_normal(
+                   (CLUSTER_INSERTS, d), dtype=np.float32))
+    for part in np.array_split(c_extra, 10):
+        router.insert(part)
+    c_alive = np.ones(n_base + CLUSTER_INSERTS, bool)
+    c_dead = crng.choice(c_alive.size, CLUSTER_DELETES, replace=False)
+    router.delete(c_dead)
+    c_alive[c_dead] = False
+    for s, r in ((0, 1), (1, 0), (1, 1)):
+        plan.revive(s, r)
+    for _ in range(6):
+        res = router.query_scan_batch(wq, l=SCAN_L, topk=4)
+        if res.coverage == 1.0 and router.stats()["replicas_alive"] == 4:
+            break
+    cst = router.stats()
+    check(res.coverage == 1.0 and cst["replicas_alive"] == 4,
+          "every replica re-admitted")
+    check(cst["catchups"] >= 1, "re-admission caught replicas up")
+    live_rows = np.flatnonzero(c_alive)
+    same_as_fresh(f"recovered ({cst['catchups']} catch-ups after "
+                  f"{CLUSTER_INSERTS} inserts and {CLUSTER_DELETES} deletes)",
+                  res, live_rows,
+                  np.concatenate([x_base, c_extra])[live_rows])
+    check(cst["timeouts"] == 0, "no timeout on the healthy checks")
+    print("router stats: " + json.dumps(
+        {k: v for k, v in cst.items() if k not in ("health", "faults")}))
+    router.close()
+    del router, csvc
+    torch.cuda.empty_cache()
+
+    # the seeded soak: scripted kills, flaps, drops and delays under
+    # traffic and writes; any uncaught exception fails the run
+    t0 = time.perf_counter()
+    soak_plan = FaultPlan.seeded(args.seed, 2, 2, horizon_calls=200)
+    soak = ShardReplicaRouter(ccfg, shards=2, replicas=2,
+                              fault_plan=soak_plan).fit(x_base)
+    for s in range(2):
+        for r in range(2):
+            soak.replica(s, r).upload_base()
+    ssvc = HashQueryService(soak, mode="scan", scan_l=SCAN_L)
+    s_alive = np.ones(n_base, bool)
+    s_cov, s_lat = [], []
+    for i in range(SOAK_BATCHES):
+        if i % 8 == 7:
+            soak.insert(c_extra[i * 100:i * 100 + 500])
+            s_alive = np.concatenate([s_alive, np.ones(500, bool)])
+            dead = crng.choice(np.flatnonzero(s_alive), 250, replace=False)
+            soak.delete(dead)
+            s_alive[dead] = False
+        k = (i % args.batches) * BATCH
+        t = time.perf_counter()
+        ssvc.query_batch(ws[k:k + BATCH])
+        s_lat.append(time.perf_counter() - t)
+        s_cov.append(ssvc.stats()["last_coverage"])
+    sst = soak.stats()
+    soak_stats = {k: sst[k] for k in ("failovers", "timeouts", "replica_downs",
+                                      "readmits", "catchups", "write_skips",
+                                      "degraded_answers")}
+    soak_stats.update(
+        batches=SOAK_BATCHES, injected=soak_plan.stats()["injected"],
+        min_coverage=min(s_cov),
+        p95_ms=1e3 * float(np.quantile(s_lat, 0.95)),
+        max_ms=1e3 * max(s_lat), seconds=time.perf_counter() - t0)
+    print("seeded fault soak (no uncaught exception): "
+          + json.dumps(soak_stats))
+    check(soak_plan.stats()["injected"] > 0, "the soak injected faults")
+    c_lat_ms = 1e3 * np.asarray(c_lat)
+    print("cluster path: " + json.dumps({
+        "micro_batches": CLUSTER_BATCHES,
+        "qps": CLUSTER_BATCHES * BATCH / float(np.sum(c_lat)),
+        "p95_ms": float(np.quantile(c_lat_ms, 0.95)),
+        "max_ms": float(c_lat_ms.max())}))
+    soak.close()
+    del soak, ssvc
+    torch.cuda.empty_cache()
+
+    # -- 18. times ----------------------------------------------------------
+    phase("18 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []

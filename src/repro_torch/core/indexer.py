@@ -28,8 +28,7 @@ class IndexConfig:
 
     The JAX package's ``use_kernels`` has no counterpart here: the device
     of the tensors chooses, so CUDA tensors launch the hand-written kernels
-    and CPU tensors take their plain PyTorch versions.  The refresh knobs
-    come with the slice that ports their reader (ROADMAP, queue 1 item 8.3).
+    and CPU tensors take their plain PyTorch versions.
     """
 
     method: str = "lbh"            # ah | eh | bh | lbh
@@ -76,6 +75,19 @@ class IndexConfig:
     lbh_lr: float = 0.03
     # EH dimension-sampling trick (paper §5.2); None = exact d^2 embedding
     eh_sample_dims: int | None = None
+    # Online refresh (serving.refresh.RefreshManager over the LSM index):
+    # re-learn the families from the accumulated live rows and swap the
+    # rebuilt codes and tables in under traffic.  refresh_method is the
+    # family the re-learn makes ("lbh": learned, warm-started at BH, with
+    # lbh_sample / lbh_steps / lbh_lr).  refresh_ingest_rows arms the
+    # service's auto policy: a background refresh starts once that many
+    # rows were inserted since the last one (None = manual refresh() only).
+    # refresh_traffic_sample narrows the learning pool to the rows with the
+    # smallest margin to recently served query normals (False keeps the
+    # seeded uniform subsample).
+    refresh_method: str = "lbh"
+    refresh_ingest_rows: int | None = None
+    refresh_traffic_sample: bool = False
 
 
 @dataclasses.dataclass
@@ -160,8 +172,7 @@ class HyperplaneIndex:
         other BH / LBH families through the materialised-factor kernel
         (plain versions on the CPU), AH / EH through their own matmuls."""
         if type(family) is F.SeededBHHash:
-            return ops.bilinear_hash_seeded_grouped(x, [family.seed],
-                                                    family.k)[0]
+            return ops.bilinear_hash_seeded(x, family.seed, family.k)
         if isinstance(family, F.BHHash):
             return ops.bilinear_hash(x, family.u, family.v)
         return family.hash_database(x)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.functions import LBHHash, _sgn, strict_fp32
-from repro_torch.kernels import lbh_grad, ops
+from repro_torch.kernels import _build, lbh_grad, ops
 
 # Rows of x_m whose |cos| row against x_all is held at once by
 # auto_thresholds: 64 rows x 1.06M columns is 271 MB.
@@ -220,7 +220,7 @@ class BitLoop:
                 self.graph.capture_end()
         main.wait_stream(side)
         self.chain_launches = lbh_grad.lbh_chain.captured - captured
-        BitLoop.captures += 1
+        _build.count(BitLoop, "captures")
 
     def run(self, u0: torch.Tensor, v0: torch.Tensor, r: torch.Tensor):
         """(u, v, costs (steps,)) of one bit from warm start (u0, v0)
@@ -230,7 +230,7 @@ class BitLoop:
             self.uv0[self.d:].copy_(v0)
             self.r.copy_(r)
         self.graph.replay()
-        lbh_grad.lbh_chain.launches += self.chain_launches
+        _build.count(lbh_grad.lbh_chain, n=self.chain_launches)
         best = self.best.clone()
         return best[:self.d], best[self.d:], self.costs.clone()
 

@@ -2,9 +2,11 @@
 
 Plain PyTorch: these functions run on whatever device their tensors live
 on and launch no hand-written kernel (the fused scan kernels are reached
-through ``repro_torch.kernels.ops``).  The sharded scan of the JAX package
-(``shard_map``, ``mesh=``) and its helpers ``drop_tombstones_topk`` and
-``merge_topk_shards`` are not ported yet (ROADMAP, queue 1 item 9).
+through ``repro_torch.kernels.ops``).  ``merge_topk_shards`` is host
+numpy: the replicated-shard router (``serving.cluster``) merges its shards'
+lists with it.  The sharded scan of the JAX package (``shard_map``,
+``mesh=``) and its helper ``drop_tombstones_topk`` are not ported yet
+(ROADMAP, queue 1 item 9).
 
 Tie contract shared with the JAX package: top-l by (distance, id)
 ascending, ties to the lowest id, impossible slots (l > n, masked rows)
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from repro_torch.core.functions import strict_fp32
@@ -193,6 +196,11 @@ def _segmented_rows(base_x, delta_x, split: int, rows):
     return torch.where((rows < split)[..., None], cb, cd)
 
 
+# the products' d axis is zero-padded to a multiple of this many floats
+# (32 bytes) before the sum: see _row_margins
+_ROW_ALIGN = 8
+
+
 def _margins(x, w_batch, rows):
     """|w.x| / ||w|| for the gathered rows: multiply + reduce over d (not a
     matmul), so a row's margin does not depend on the batch around it."""
@@ -200,8 +208,19 @@ def _margins(x, w_batch, rows):
 
 
 def _row_margins(cx, w_batch):
-    """|w.x| / ||w|| of gathered rows cx (B, C, d) against w_batch (B, d)."""
-    m = torch.abs(torch.sum(cx * w_batch[:, None, :], dim=-1))
+    """|w.x| / ||w|| of gathered rows cx (B, C, d) against w_batch (B, d).
+
+    The CUDA sum over a contiguous axis longer than 128 loads it in
+    vectors from each row's own alignment, so rows that start at other
+    offsets mod 16 bytes (a d * 4-byte row stride that is no multiple of
+    16) would sum in other orders: a row's margin would depend on its
+    place among the candidates.  Zero-padding d to a multiple of
+    ``_ROW_ALIGN`` starts every row aligned; the added terms are +0.0."""
+    prod = cx * w_batch[:, None, :]
+    pad = -prod.shape[-1] % _ROW_ALIGN
+    if pad:
+        prod = torch.nn.functional.pad(prod, (0, pad))
+    m = torch.abs(torch.sum(prod, dim=-1))
     return m / torch.clamp(torch.linalg.vector_norm(w_batch, dim=1,
                                                     keepdim=True), min=1e-12)
 
@@ -260,3 +279,33 @@ def margin_batch(x, w_batch, candidates, valid):
     for the gather)."""
     rows = torch.clamp(candidates, 0, x.shape[0] - 1)
     return torch.where(valid, _margins(x, w_batch, rows), torch.inf)
+
+
+def merge_topk_shards(dists: list, ids: list, l: int):
+    """Host-side lexicographic (dist, id) merge of per-shard top-l lists.
+
+    dists / ids: equal-length lists of (..., l_s) numpy arrays, one per
+    covered shard, each sorted ascending by (distance, id) with
+    (DIST_SENTINEL, -1) in impossible slots; ids already GLOBAL.  Returns
+    (dists (..., l) int32, ids (..., l) int64): the top-l a single scan over
+    the union of the shards' rows gives.  Real distances never reach
+    DIST_SENTINEL, so sentinels sort last, and equal distances resolve to
+    the lowest global id.  Any row of the covered rows' top-l is in its own
+    shard's top-l, which is why merging lists (not answers) is exact.
+    """
+    d = np.concatenate([np.asarray(a, dtype=np.int64) for a in dists],
+                       axis=-1)
+    i = np.concatenate([np.asarray(a, dtype=np.int64) for a in ids],
+                       axis=-1)
+    # one composite key per slot: the distance in the high bits, id + 1 in
+    # the low 32 (sentinel slots carry id -1 -> 0), so one stable argsort
+    # realises the (dist, id) order
+    order = np.argsort((d << 32) | (i + 1), axis=-1, kind="stable")
+    d = np.take_along_axis(d, order, axis=-1)[..., :l]
+    i = np.take_along_axis(i, order, axis=-1)[..., :l]
+    have = d.shape[-1]
+    if have < l:
+        pad = [(0, 0)] * (d.ndim - 1) + [(0, l - have)]
+        d = np.pad(d, pad, constant_values=DIST_SENTINEL)
+        i = np.pad(i, pad, constant_values=-1)
+    return d.astype(np.int32), i

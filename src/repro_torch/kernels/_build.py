@@ -7,6 +7,12 @@ every header under ``csrc/`` and of the flags, so an edited source or
 header builds anew and an unchanged one is reused.
 No ``--use_fast_math``: the hash kernel's generator needs IEEE logf/cosf.
 A failed build raises with nvcc's output; nothing falls back.
+
+Threads: ``build`` and ``load`` hold one module lock, so two threads that
+use a library for the first time build it once and load it once (the
+router's shard threads and the refresh worker meet first uses together).
+The launch counters of the kernel wrappers move through ``count``, under
+a lock of their own, so concurrent launches lose no increment.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -23,6 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.RLock()    # build / load: one first use at a time
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add n to the counter ``fn.<attr>`` of a kernel wrapper, under a lock
+    (a bare ``+=`` on a function attribute can lose increments between
+    threads)."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def nvcc_path() -> str:
@@ -52,14 +69,21 @@ def build(names) -> None:
     """Compile every library in ``names`` that is not built yet, one nvcc
     process per source, all started together.  nvcc's output (with the
     ``-Xptxas -v`` register / shared-memory / spill report) is kept beside
-    each library; see ``build_log``."""
+    each library; see ``build_log``.  The temporary file carries the
+    process and the thread id, so no two threads write one file."""
+    with _BUILD_LOCK:
+        _build_locked(names)
+
+
+def _build_locked(names) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
         so = library_path(name)
         if so.exists():
             continue
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        tmp = so.with_name(
+            f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
@@ -90,13 +114,17 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     Pointers and the stream go as ``ctypes.c_void_p``: an undeclared
     argument would pass as a 32-bit int and cut a pointer."""
     lib = _LIBS.get(name)
-    if lib is None:
-        so = library_path(name)
-        if not so.exists():
-            build([name])
-        lib = ctypes.CDLL(str(so))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            so = library_path(name)
+            if not so.exists():
+                build([name])
+            lib = ctypes.CDLL(str(so))
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[name] = lib
     return lib

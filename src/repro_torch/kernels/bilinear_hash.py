@@ -81,7 +81,7 @@ def bilinear_hash(x: torch.Tensor, u: torch.Tensor,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bilinear_hash launch failed: CUDA error {err}")
-    bilinear_hash.launches += 1
+    _build.count(bilinear_hash)
     return out
 
 
@@ -155,7 +155,7 @@ def bilinear_hash_seeded(x: torch.Tensor, seeds, k: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"bilinear_hash_seeded launch failed: CUDA error "
                            f"{err}")
-    bilinear_hash_seeded.launches += 1
+    _build.count(bilinear_hash_seeded)
     return out
 
 

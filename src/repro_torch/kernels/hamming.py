@@ -176,7 +176,7 @@ def hamming_topk_hist(codes, queries, l_k: int, block_n: int, active=None,
                                        pack)
     out = _launch_scan(LIBRARY, "topk_hist", codes, queries, l_k, block_n,
                        active, pack)
-    hamming_topk_hist.launches += 1
+    _build.count(hamming_topk_hist)
     return out
 
 
@@ -202,7 +202,7 @@ def hamming_topk_hist_dma(codes, queries, l_k: int, block_n: int,
                                        pack)
     out = _launch_scan(LIBRARY, "topk_hist_dma", codes, queries, l_k,
                        block_n, active, pack)
-    hamming_topk_hist_dma.launches += 1
+    _build.count(hamming_topk_hist_dma)
     return out
 
 
@@ -241,7 +241,7 @@ def hamming_topk_fused(codes, queries, l_k: int, block_n: int, active=None,
                                         pack)
     out = _launch_scan(FUSED_LIBRARY, "topk_fused", codes, queries, l_k,
                        block_n, active, pack)
-    hamming_topk_fused.launches += 1
+    _build.count(hamming_topk_fused)
     return out
 
 
@@ -313,7 +313,7 @@ def hamming_distance(codes, query):
     if codes.device.type == "cpu":
         return hamming_distance_plain(codes, query)
     out = _launch_distances("distance_launch", codes, query[None, :])
-    hamming_distance.launches += 1
+    _build.count(hamming_distance)
     return out[0]
 
 
@@ -331,7 +331,7 @@ def hamming_distance_batch(codes, queries):
     if codes.device.type == "cpu":
         return hamming_distance_batch_plain(codes, queries)
     out = _launch_distances("distance_batch_launch", codes, queries)
-    hamming_distance_batch.launches += 1
+    _build.count(hamming_distance_batch)
     return out
 
 

@@ -73,11 +73,11 @@ def lbh_chain(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"lbh_chain launch failed: CUDA error {err}")
     if torch.cuda.is_current_stream_capturing():
-        lbh_chain.captured += 1
+        _build.count(lbh_chain, "captured")
     elif getattr(_warmup, "depth", 0):
-        lbh_chain.warmup_launches += 1
+        _build.count(lbh_chain, "warmup_launches")
     else:
-        lbh_chain.launches += 1
+        _build.count(lbh_chain)
     return sq, sp
 
 

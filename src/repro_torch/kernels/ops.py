@@ -13,7 +13,8 @@ from repro_torch.core.search import (DIST_SENTINEL, _pad_topk,
                                      lex_smallest)
 from repro_torch.kernels import bilinear_hash as _bh
 from repro_torch.kernels import lbh_grad as _lbh
-from repro_torch.kernels.bilinear_hash import bilinear_hash_seeded
+from repro_torch.kernels.bilinear_hash import \
+    bilinear_hash_seeded as _bilinear_hash_seeded
 from repro_torch.kernels.hamming import (cand_encoding, hamming_distance,
                                          hamming_distance_batch,
                                          hamming_topk_fused,
@@ -55,7 +56,14 @@ def bilinear_hash_seeded_grouped(x, seeds, k: int) -> torch.Tensor:
     """
     if torch.is_tensor(seeds):
         seeds = seeds.tolist()
-    return bilinear_hash_seeded(_f32(x), [int(s) for s in seeds], k)
+    return _bilinear_hash_seeded(_f32(x), [int(s) for s in seeds], k)
+
+
+def bilinear_hash_seeded(x, seed, k: int) -> torch.Tensor:
+    """Single-table seed-generated hash: (n, ceil(k/32)) int32 codes
+    carrying uint32 bits, group 0 of ``bilinear_hash_seeded_grouped`` with
+    the one seed."""
+    return bilinear_hash_seeded_grouped(x, [int(seed)], k)[0]
 
 
 def hamming_distances(codes, query, *, block_n: int = 2048):

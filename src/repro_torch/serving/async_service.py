@@ -35,8 +35,9 @@ compaction folds the delta back without stopping the world.
 
 The JAX package pads each flushed group to a power-of-two size so that its
 jitted paths see few shapes; PyTorch traces nothing, so the port answers
-each group at its own size.  The online refresh (``refresh``) and the
-row-sharded scan (``mesh=``) are not ported yet.
+each group at its own size.  ``refresh`` triggers the inner service's
+online re-learn and generation swap; the row-sharded scan (``mesh=``) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from concurrent.futures import Future
 import numpy as np
 
 from repro_torch.serving.multi_table import MultiTableIndex
-from repro_torch.serving.service import _NO_REFRESH, HashQueryService
+from repro_torch.serving.service import HashQueryService
 
 
 class QueueFullError(RuntimeError):
@@ -434,9 +435,19 @@ class AsyncHashQueryService:
 
     # -- online refresh ------------------------------------------------------
 
-    def refresh(self, wait: bool = True, warm_batches: tuple = ()) -> bool:
-        """The JAX package's online re-learn and generation swap."""
-        raise NotImplementedError(_NO_REFRESH)
+    def refresh(self, wait: bool = True, warm_batches: tuple = (),
+                warm_l: int | None = None) -> bool:
+        """Trigger an online re-learn and generation swap (see
+        ``HashQueryService.refresh``).  The learn and build phases run
+        outside ``_service_lock``: flushes keep flowing against the old
+        generation until the swap's bounded critical section, so any
+        thread may call this, with wait=True too."""
+        with self._service_lock:
+            service = self.service
+        # delegate off the lock: the refresh manager serialises itself and
+        # the index lock guards the swap
+        return service.refresh(wait=wait, warm_batches=warm_batches,
+                               warm_l=warm_l)
 
     # -- counters ------------------------------------------------------------
 

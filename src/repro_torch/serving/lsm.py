@@ -36,8 +36,15 @@ with a liveness re-check so rows deleted mid-compaction stay tombstoned.
 The probe tables are keyed by stable id, so compaction never rebuilds
 them.
 
-Not ported yet: the row-sharded scan (``mesh=``, ROADMAP queue 1 item 9)
-and the refresh generation swap (``_adopt_refresh``, item 8.3).
+Online refresh (``serving.refresh``) builds a private shadow index over the
+live rows with re-learned families (``_install``, ``_append_rows``) and
+grafts its whole segment state into this object by pointer flips
+(``_adopt_refresh``): ``generation`` counts those swaps.  Every consumer
+snapshots the families together with the device state under one lock
+hold, and ``insert`` re-hashes when a swap landed while it hashed, so no
+answer and no row mixes two generations.
+
+Not ported yet: the row-sharded scan (``mesh=``, ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -62,6 +69,9 @@ from repro_torch.serving.multi_table import (_NO_MESH, BatchQueryResult,
 from repro_torch.utils.bits import to_numpy_u32
 
 _MIN_CAP = 64   # floor of every power-of-two buffer / device row bucket
+# bucket entries of a retired generation's probe tables freed between two
+# yields of the interpreter (``release``)
+_RELEASE_SLICE = 20_000
 
 
 def _pow2_at_least(v: int, floor: int = 1) -> int:
@@ -69,6 +79,21 @@ def _pow2_at_least(v: int, floor: int = 1) -> int:
     while p < v:
         p *= 2
     return p
+
+
+def release(retired: dict) -> None:
+    """Free a generation that ``_adopt_refresh`` replaced, after the
+    caller has let go of the index lock: its probe tables a slice of
+    buckets at a time, yielding the interpreter between slices (millions
+    of bucket arrays freed in one statement would hold every other thread
+    for most of a second), then its buffers."""
+    for table in retired.pop("tables"):
+        for entries in (table.buckets, table._id_key or {}):
+            while entries:
+                for _ in range(min(_RELEASE_SLICE, len(entries))):
+                    entries.popitem()
+                time.sleep(0)
+    retired.clear()
 
 
 class _Compaction:
@@ -130,6 +155,9 @@ class LSMMultiTableIndex(MultiTableIndex):
         # compaction state, counters, hash families and probe tables
         "_c": "_lock", "delta_uploads": "_lock",
         "families": "_lock", "tables": "_lock",
+        # refresh lifecycle: codes hashed off the lock must pair with the
+        # generation whose state they meet (insert, _scan_segments)
+        "generation": "_lock", "refreshes": "_lock",
     }
 
     def __init__(self, config: IndexConfig, tables: int | None = None,
@@ -173,6 +201,8 @@ class LSMMultiTableIndex(MultiTableIndex):
         self._compactor: threading.Thread | None = None
         self._compactor_stop = threading.Event()
         self.delta_uploads = 0   # small per-mutation transfers, not the base
+        self.generation = 0      # refresh swaps adopted (_adopt_refresh)
+        self.refreshes = 0
 
     # -- build ---------------------------------------------------------------
 
@@ -185,21 +215,48 @@ class LSMMultiTableIndex(MultiTableIndex):
         starts empty): the families, the (rows, d) features, the per-table
         (rows, W) uint32 codes, the tombstone mask, the row -> stable id map
         (ascending) and the id high-water mark.  The probe tables are built
-        over the live rows, keyed by stable id."""
+        over the live rows, keyed by stable id.  ``fit`` lands here too."""
         if len(families) != self.num_tables or len(codes) != self.num_tables:
             raise ValueError(f"expected {self.num_tables} families and code "
                              f"tables, got {len(families)} and {len(codes)}")
-        x = np.asarray(x, dtype=np.float32)
+        self._install(x, families, ids=ids_np, next_id=next_id,
+                      codes=codes, active=active)
+        return self
+
+    def _install(self, x, families, ids=None, next_id: int | None = None,
+                 bcap_floor: int = _MIN_CAP, codes=None,
+                 active=None) -> None:
+        """Build the whole segment state from scratch: rows [0, n) of x
+        become the immutable base, the delta starts empty.  ids: the rows'
+        stable ids (ascending; default 0..n-1); next_id: the id high-water
+        mark (default past the last id); bcap_floor: the least base row
+        bucket.  codes / active: the (L, n, W) uint32 codes and the
+        tombstone mask when the caller has them (default: hash x under
+        families; every row live).  A refresh shadow passes the live rows'
+        existing stable ids, the live index's high-water mark and its
+        sticky base bucket, so the swapped-in device state keeps its
+        allocation sizes."""
+        x = np.require(x, dtype=np.float32, requirements=["C"])
         n, d = x.shape
-        ids = np.asarray(ids_np, dtype=np.int64)
-        active = np.asarray(active, dtype=bool)
+        if ids is None:
+            ids = np.arange(n, dtype=np.int64)
+        ids = np.asarray(ids, dtype=np.int64)
+        active = (np.ones(n, bool) if active is None
+                  else np.asarray(active, dtype=bool))
         if ids.shape != (n,) or active.shape != (n,):
             raise ValueError(f"ids and active must have shape ({n},)")
         if n and not (np.diff(ids) > 0).all():
             raise ValueError("stable ids must ascend with rows")
+        hi = int(next_id if next_id is not None
+                 else (ids[-1] + 1 if n else 0))
+        if codes is None:
+            codes = to_numpy_u32(bq.hash_database_all(families, x))
         codes = np.stack([np.asarray(c, dtype=np.uint32) for c in codes])
         cap = _pow2_at_least(n, _MIN_CAP)
         live = np.flatnonzero(active)
+        tables = [SingleHashTable(codes[t, live], self.config.bits,
+                                  ids=ids[live])
+                  for t in range(self.num_tables)]
         with self._lock:
             self._codes_buf = np.zeros((self.num_tables, cap, codes.shape[2]),
                                        np.uint32)
@@ -210,24 +267,21 @@ class LSMMultiTableIndex(MultiTableIndex):
             self._ids_buf[:n] = ids
             self._active_buf = np.zeros(cap, bool)
             self._active_buf[:n] = active
-            self._next_id = int(next_id)
-            self._row_of_buf = np.full(
-                _pow2_at_least(self._next_id, _MIN_CAP), -1, np.int64)
+            self._next_id = hi
+            self._row_of_buf = np.full(_pow2_at_least(hi, _MIN_CAP), -1,
+                                       np.int64)
             self._row_of_buf[ids] = np.arange(n)
             self._rows, self._base_len, self._frozen_len = n, n, 0
-            self._bcap = _pow2_at_least(n, _MIN_CAP)
+            self._bcap = _pow2_at_least(n, max(_MIN_CAP, int(bcap_floor)))
             self._c = None
             self.compactions = 0
             self.families = list(families)
             self._refresh_views()
-            self.tables = [SingleHashTable(codes[t, live], self.config.bits,
-                                           ids=ids[live])
-                           for t in range(self.num_tables)]
+            self.tables = tables
             self._base_version += 1
             self._base_mask_version += 1
             self._delta_version += 1
             self.version += 1
-        return self
 
     def _refresh_views(self) -> None:
         """Re-point the parent's attributes at the buffer prefixes.  Views,
@@ -306,27 +360,54 @@ class LSMMultiTableIndex(MultiTableIndex):
         k = x_new.shape[0]
         if k == 0:
             return np.empty((0,), dtype=np.int64)
-        with self._lock:
-            fams = self.families
-        new_codes = to_numpy_u32(bq.hash_database_all(fams, x_new))
+        # hash off the lock against a (families, generation) snapshot; a
+        # refresh swap that lands meanwhile would file old-generation codes
+        # under the new tables, so the (rare) loser hashes again
+        while True:
+            with self._lock:
+                fams, gen = self.families, self.generation
+            new_codes = to_numpy_u32(bq.hash_database_all(fams, x_new))
+            with self._lock:
+                if self.generation == gen:
+                    ids = self._append_rows(x_new, new_codes)
+                    break
+        self._maybe_compact()
+        return ids
+
+    def _append_rows(self, x_new: np.ndarray, new_codes: np.ndarray,
+                     ids: np.ndarray | None = None) -> np.ndarray:
+        """Append pre-hashed rows to the live delta.  ids: fresh ones past
+        the high-water mark (default, ``insert``) or the existing stable
+        ids of the rows a refresh's catch-up mirrors into its shadow
+        (ascending, past every id already here)."""
+        k = x_new.shape[0]
+        if k == 0:
+            return np.empty((0,), dtype=np.int64)
         with self._lock:
             r0 = self._rows
-            ids = np.arange(self._next_id, self._next_id + k, dtype=np.int64)
+            if ids is None:
+                ids = np.arange(self._next_id, self._next_id + k,
+                                dtype=np.int64)
+            else:
+                ids = np.asarray(ids, dtype=np.int64)
+                if not (int(ids[0]) >= self._next_id
+                        and bool((np.diff(ids) > 0).all())):
+                    raise ValueError("appended ids must ascend past the "
+                                     "high-water mark (row order = id order)")
             self._grow_rows(r0 + k)
-            self._grow_ids(self._next_id + k)
+            self._grow_ids(int(ids[-1]) + 1)
             self._codes_buf[:, r0:r0 + k] = new_codes
             self._x_buf[r0:r0 + k] = x_new
             self._ids_buf[r0:r0 + k] = ids
             self._active_buf[r0:r0 + k] = True
             self._row_of_buf[ids] = np.arange(r0, r0 + k, dtype=np.int64)
-            self._next_id += k
+            self._next_id = max(self._next_id, int(ids[-1]) + 1)
             self._rows = r0 + k
             self._refresh_views()
             for t in range(self.num_tables):
                 self.tables[t].insert(new_codes[t], ids)
             self._delta_version += 1
             self.version += 1
-        self._maybe_compact()
         return ids
 
     def delete(self, ids) -> None:
@@ -504,6 +585,90 @@ class LSMMultiTableIndex(MultiTableIndex):
         self.compactions += 1
         self._c = None
 
+    # -- online refresh (serving.refresh drives this) ------------------------
+
+    def _adopt_refresh(self, shadow: "LSMMultiTableIndex") -> dict:
+        """Graft a shadow index's whole segment state (host buffers,
+        families, probe tables, device caches) into this object by pointer
+        flips: the generation swap.  Services and threads that hold this
+        object see the new generation on their next locked read; a query
+        that snapshotted the old device handles finishes on them.  An
+        in-flight compaction is abandoned (``compaction_step`` re-checks).
+        The shadow's device caches are adopted where their keys are
+        current, so a warmed shadow serves its first query without an
+        upload.  Returns the replaced generation, for the caller to free
+        with ``release`` once it has let go of the lock: freeing it here
+        would be most of the pause."""
+        # lock held by caller
+        retired = {"tables": self.tables, "compaction": self._c,
+                   "buffers": (self._codes_buf, self._x_buf, self._ids_buf,
+                               self._active_buf, self._row_of_buf),
+                   "views": (self.codes, self.x_np, self.active, self.ids_np,
+                             self._row_of),
+                   "device": (self._base_codes_dev, self._base_active_dev,
+                              self._base_x_dev, self._delta_codes_dev,
+                              self._delta_x_dev, self._delta_active_dev,
+                              self._x_dev)}
+        with shadow._lock:
+            self._codes_buf = shadow._codes_buf
+            self._x_buf = shadow._x_buf
+            self._ids_buf = shadow._ids_buf
+            self._active_buf = shadow._active_buf
+            # ids past the shadow's high-water mark (rows inserted and
+            # deleted before the swap) resolve to -1, as deleted ids do
+            hi = max(self._next_id, shadow._next_id)
+            row_of = shadow._row_of_buf
+            if row_of.shape[0] < hi:
+                row_of = np.full(_pow2_at_least(hi, _MIN_CAP), -1, np.int64)
+                row_of[:shadow._row_of_buf.shape[0]] = shadow._row_of_buf
+            self._row_of_buf = row_of
+            self._rows = shadow._rows
+            self._base_len = shadow._base_len
+            self._frozen_len = 0
+            self._bcap = shadow._bcap
+            self._next_id = hi
+            self.families = shadow.families
+            self.tables = shadow.tables
+            self._refresh_views()
+            self._base_version += 1
+            self._base_mask_version += 1
+            self._delta_version += 1
+            if shadow._base_codes_key == shadow._base_version:
+                self._base_codes_dev = shadow._base_codes_dev
+                self._base_codes_key = self._base_version
+            else:
+                self._base_codes_dev, self._base_codes_key = None, None
+            if shadow._base_active_key == (shadow._base_version,
+                                           shadow._base_mask_version):
+                self._base_active_dev = shadow._base_active_dev
+                self._base_active_key = (self._base_version,
+                                         self._base_mask_version)
+            else:
+                self._base_active_dev, self._base_active_key = None, None
+            if shadow._base_x_key == shadow._base_version:
+                self._base_x_dev = shadow._base_x_dev
+                self._base_x_key = self._base_version
+            else:
+                self._base_x_dev, self._base_x_key = None, None
+            if (shadow._delta_key == shadow._delta_version
+                    and shadow._rows > shadow._base_len):
+                self._delta_codes_dev = shadow._delta_codes_dev
+                self._delta_x_dev = shadow._delta_x_dev
+                self._delta_active_dev = shadow._delta_active_dev
+                self._delta_key = self._delta_version
+            else:
+                self._delta_codes_dev = self._delta_x_dev = None
+                self._delta_active_dev = self._delta_key = None
+            self._x_dev, self._x_dev_key = None, None
+            self.device_uploads += shadow.device_uploads
+            self.scan_state_rebuilds += shadow.scan_state_rebuilds
+            self.delta_uploads += shadow.delta_uploads
+        self._c = None
+        self.version += 1
+        self.generation += 1
+        self.refreshes += 1
+        return retired
+
     def compact(self) -> np.ndarray:
         """Synchronous full compaction: begin, every incremental step and
         the swap.  Returns the surviving stable ids; a no-op when there is
@@ -612,6 +777,16 @@ class LSMMultiTableIndex(MultiTableIndex):
             self.device_uploads += 1
         return (self._delta_codes_dev, self._delta_x_dev,
                 self._delta_active_dev)
+
+    def upload_base(self) -> None:
+        """Put the base segment's device state (codes, liveness, features)
+        on the device now, so that the next scan does not pay the upload
+        inside its call."""
+        with self._lock:
+            if self._base_len:
+                self._base_codes_state()
+                self._base_active_state()
+                self._base_x_state()
 
     # -- probe path ----------------------------------------------------------
 

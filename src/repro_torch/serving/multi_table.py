@@ -52,6 +52,10 @@ class BatchQueryResult:
                              # slots holding a live row
     ids_topk: np.ndarray | None = None      # (B, l) when queried with l > 1
     margins_topk: np.ndarray | None = None  # (B, l), +inf past the valid set
+    # a ShardReplicaRouter's answers: the fraction of live rows scanned, and
+    # whether it fell short of 1 (a single index always covers every row)
+    coverage: float = 1.0
+    degraded: bool = False
 
 
 class MultiTableIndex:

@@ -17,10 +17,13 @@ Two interchangeable backends (``mode``):
 
 With ``serving.lsm.LSMMultiTableIndex`` underneath, writes and compaction
 run under live traffic: every answer takes the index's lock
-(``_index_lock``) across the steps that must see one row space.
+(``_index_lock``) across the steps that must see one row space, and the
+online refresh (``refresh``, ``serving.refresh.RefreshManager``) re-learns
+the families and swaps the rebuilt index in.  Over a
+``serving.cluster.ShardReplicaRouter`` scan answers carry ``coverage``
+(counted in ``degraded_batches`` and ``last_coverage``).
 
-The JAX package's online refresh (``refresh``, ``RefreshManager``) and the
-row-sharded scan (``mesh=``) come with later slices of the port.
+The row-sharded scan (``mesh=``) comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -33,10 +36,8 @@ import numpy as np
 from repro_torch.core.indexer import QueryResult
 from repro_torch.serving import batch_query as bq
 from repro_torch.serving.multi_table import _NO_MESH, MultiTableIndex
+from repro_torch.serving.refresh import RefreshManager
 from repro_torch.utils.bits import to_numpy_u32
-
-_NO_REFRESH = ("online refresh (RefreshManager) is not ported yet "
-               "(ROADMAP, queue 1 item 8.3)")
 
 
 class HashQueryService:
@@ -72,6 +73,16 @@ class HashQueryService:
         self.inserted_rows = 0
         self.deletes = 0
         self.deleted_rows = 0
+        # scan answers from a ShardReplicaRouter carry coverage / degraded;
+        # a single index always covers every row
+        self.degraded_batches = 0
+        self.last_coverage = 1.0
+        # online refresh: available when the index supports the generation
+        # swap (the LSM index); made here so that two first triggers cannot
+        # race a lazy constructor
+        self.refresher = (RefreshManager(index)
+                          if hasattr(index, "_adopt_refresh") else None)
+        self._refresh_mark = 0   # inserted_rows at the last auto trigger
 
     def _index_lock(self):
         """The index's lock when it has one (the LSM index's compactor swaps
@@ -89,6 +100,7 @@ class HashQueryService:
             ids = self.index.insert(x_new)
         self.inserts += 1
         self.inserted_rows += int(ids.size)
+        self._maybe_refresh()
         return ids
 
     def delete(self, ids) -> None:
@@ -99,9 +111,36 @@ class HashQueryService:
         self.deletes += 1
         self.deleted_rows += int(ids.size)
 
-    def refresh(self, wait: bool = True, warm_batches: tuple = ()) -> bool:
-        """The JAX package's online re-learn and generation swap."""
-        raise NotImplementedError(_NO_REFRESH)
+    # -- online refresh ------------------------------------------------------
+
+    def refresh(self, wait: bool = True, warm_batches: tuple = (),
+                warm_l: int | None = None) -> bool:
+        """Re-learn the hash families from the accumulated rows and swap the
+        rebuilt index in (``serving.refresh.RefreshManager``; needs the LSM
+        index).  wait=False runs it on a background worker, off the query
+        path.  Returns False when a refresh is already in flight.
+        warm_batches: batch sizes scanned against the new generation before
+        the swap (scan mode defaults to this service's max_batch); warm_l:
+        their scan depth (default: this service's scan_l)."""
+        if self.refresher is None:
+            raise RuntimeError(
+                "refresh() requires an index with generation-swap support "
+                "(serving.lsm.LSMMultiTableIndex)")
+        if not warm_batches and self.mode == "scan":
+            warm_batches = (self.max_batch,)
+        return self.refresher.refresh(
+            wait=wait, warm_batches=warm_batches,
+            warm_l=self.scan_l if warm_l is None else int(warm_l))
+
+    def _maybe_refresh(self) -> None:
+        """Auto policy: start a background refresh once
+        ``config.refresh_ingest_rows`` rows arrived since the last one."""
+        thresh = self.index.config.refresh_ingest_rows
+        if (self.refresher is None or thresh is None
+                or self.inserted_rows - self._refresh_mark < thresh):
+            return
+        self._refresh_mark = self.inserted_rows
+        self.refresh(wait=False)
 
     # -- micro-batching ------------------------------------------------------
 
@@ -162,13 +201,18 @@ class HashQueryService:
         self.latencies_s.append(elapsed)
 
     def _answer(self, ws: np.ndarray, mask) -> list[QueryResult]:
+        if (self.refresher is not None
+                and self.index.config.refresh_traffic_sample):
+            self.refresher.note_queries(ws)
         if self.mode == "scan":
             return self._answer_scan(ws, mask)
         t_start = time.perf_counter()
         b = ws.shape[0]
         use_cache = mask is None and self.cache_size > 0
         # cached candidate lists are row space: a compaction swap between
-        # the probe and the id translation would misattribute them
+        # the probe and the id translation would misattribute them, and a
+        # refresh swap between the hash and the probe would pair
+        # old-generation codes with new-generation tables
         with self._index_lock():
             qcodes = to_numpy_u32(bq.hash_queries_all(self.index.families,
                                                       ws))
@@ -209,6 +253,9 @@ class HashQueryService:
         res = self.index.query_scan_batch(ws, l=self.scan_l, mask=mask)
         self._record(b, time.perf_counter() - t_start, res.lookup_s,
                      res.rerank_s)
+        self.last_coverage = float(res.coverage)
+        if res.degraded:
+            self.degraded_batches += 1
         return [QueryResult(int(res.ids[i]), float(res.margins[i]),
                             res.candidates[i], bool(res.nonempty[i]),
                             res.lookup_s / b, res.rerank_s / b)
@@ -235,10 +282,14 @@ class HashQueryService:
             "inserted_rows": self.inserted_rows,
             "deletes": self.deletes,
             "deleted_rows": self.deleted_rows,
+            "degraded_batches": self.degraded_batches,
+            "last_coverage": self.last_coverage,
             "index_device_uploads": self.index.device_uploads,
             "index_scan_state_rebuilds": self.index.scan_state_rebuilds,
             "index_compaction_steps": self.index.compaction_steps,
             "index_compactions": self.index.compactions,
             # the LSM index's small per-mutation uploads (0 otherwise)
             "index_delta_uploads": getattr(self.index, "delta_uploads", 0),
+            "refresh": (None if self.refresher is None
+                        else self.refresher.stats()),
         }

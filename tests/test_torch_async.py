@@ -240,7 +240,7 @@ def test_writes_ride_the_queue_in_order(corpus, queries, mode):
     to their stable ids; the results equal a synchronous replay."""
     cfg = IndexConfig(method="bh", bits=14, tables=2, seed=3,
                       lsm_delta_min=64, lsm_delta_threshold=0.25,
-                      lsm_step_rows=128)
+                      lsm_step_rows=128, lbh_sample=64, lbh_steps=6)
     lsm = LSMMultiTableIndex(cfg, device="cpu").fit(corpus.x[:400])
     mirror = LSMMultiTableIndex(cfg, device="cpu").fit(corpus.x[:400])
     clock = FakeClock()
@@ -283,8 +283,14 @@ def test_writes_ride_the_queue_in_order(corpus, queries, mode):
     st = svc.stats()
     assert st["completed"] == st["submitted"] == 3 + 6 * 13 + len(queries)
     assert st["backend"]["inserted_rows"] == 240
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        svc.refresh()
+    # the online refresh: the same history re-learns the same families on
+    # both sides, so the new generation answers alike
+    assert svc.refresh(wait=True) and sync.refresh(wait=True)
+    assert lsm.generation == mirror.generation == 1
+    f_ref = [svc.submit(q) for q in queries]
+    svc.flush()
+    for f, r in zip(f_ref, sync.query_batch(queries)):
+        assert _same_result(f.result(timeout=0), r)
     svc.close()
 
 

@@ -572,3 +572,126 @@ def test_async_lsm_with_compactor_on_cuda(cuda):
         svc.close()
     assert lsm.compactions >= 1
 
+
+
+def test_refresh_captured_on_a_worker_while_scans_run(cuda, monkeypatch):
+    """A refresh with wait=False re-learns LBH on its worker thread, each
+    table's bits one CUDA graph captured there, while this thread keeps
+    scanning (hash and scan kernels on its own stream, host copies).  The
+    refresh succeeds, every answer meanwhile is well formed, the graphed
+    families equal the eager loop's bit for bit, and the new generation
+    answers like a fresh index installed over the same rows."""
+    from repro_torch.core import learning as TL
+    from repro_torch.core.indexer import make_family
+    from repro_torch.serving.lsm import LSMMultiTableIndex
+    from repro_torch.serving.service import HashQueryService
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(20_000, 65)).astype(np.float32)
+    ws = rng.normal(size=(32, 65)).astype(np.float32)
+    cfg = IndexConfig(method="bh", bits=20, tables=2, lsm_auto=False,
+                      lbh_sample=400, lbh_steps=30)
+    lsm = LSMMultiTableIndex(cfg, device=cuda).fit(x)
+    svc = HashQueryService(lsm, mode="scan", scan_l=64)
+    svc.query_batch(ws)
+    mgr = svc.refresher
+    seen = []
+    learn = mgr._learn_families
+
+    def seam(shadow_cfg, pool):
+        seen.append((shadow_cfg, pool.clone()))
+        return learn(shadow_cfg, pool)
+
+    mgr._learn_families = seam
+    captures, chain0 = TL.BitLoop.captures, lbh_chain.launches
+    scans0 = hamming_topk_hist.launches
+    assert svc.refresh(wait=False)
+    answered = 0
+    while mgr.stats()["busy"]:
+        for r in svc.query_batch(ws):
+            assert 0 <= r.index < 20_000 and np.isfinite(r.margin)
+        answered += 1
+    mgr.wait_idle(120)
+    torch.cuda.synchronize()
+    st = mgr.stats()
+    assert (st["refreshes_done"], st["refreshes_failed"],
+            st["last_error"]) == (1, 0, None)
+    assert lsm.generation == 1 and answered > 0
+    assert TL.BitLoop.captures == captures + 2
+    assert lbh_chain.launches - chain0 == 2 * 20 * 30
+    assert hamming_topk_hist.launches > scans0
+    # the eager loop on the same inputs: no BitLoop, autograd steps
+    (shadow_cfg, pool), = seen
+    monkeypatch.setattr(TL, "BitLoop", lambda *a, **k: None)
+    for t, fam in enumerate(lsm.families):
+        eager = make_family(shadow_cfg, pool, t)
+        assert torch.equal(fam.u, eager.u) and torch.equal(fam.v, eager.v)
+    fresh = LSMMultiTableIndex(cfg, device=cuda)
+    fresh._install(x, lsm.families)
+    a = lsm.query_scan_batch(ws, l=64, topk=4)
+    b = fresh.query_scan_batch(ws, l=64, topk=4)
+    assert np.array_equal(a.ids_topk, b.ids_topk)
+    assert np.array_equal(a.margins_topk, b.margins_topk)
+
+
+def test_router_on_cuda_matches_fresh_index(cuda):
+    """The replicated-shard router's scans run on its shard threads: the
+    healthy, fail-over and degraded answers equal a fresh index's over the
+    covered rows, and its first kernel uses from those threads count every
+    launch."""
+    from repro_torch.serving.cluster import ShardReplicaRouter
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.lsm import LSMMultiTableIndex
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(30_000, 65)).astype(np.float32)
+    ws = rng.normal(size=(32, 65)).astype(np.float32)
+    cfg = IndexConfig(method="bh", bits=20, tables=4, lsm_auto=False)
+    plan = FaultPlan()
+    router = ShardReplicaRouter(cfg, shards=2, replicas=2, fault_plan=plan,
+                                deadline_ms=5000.0, device=cuda).fit(x)
+    router_scans = 0
+    try:
+        for kill, rows in (((), np.arange(30_000)),
+                           (((0, 1),), np.arange(30_000)),
+                           (((1, 0), (1, 1)), np.arange(0, 30_000, 2))):
+            for s, r in kill:
+                plan.kill(s, r)
+            scans0 = hamming_topk_hist.launches
+            got = router.query_scan_batch(ws, l=128, topk=4)
+            router_scans += hamming_topk_hist.launches - scans0
+            ref = LSMMultiTableIndex(cfg, device=cuda).fit(x[rows])
+            want = ref.query_scan_batch(ws, l=128, topk=4)
+            assert got.coverage == rows.size / 30_000
+            assert np.array_equal(got.ids_topk, np.where(
+                want.ids_topk >= 0, rows[np.clip(want.ids_topk, 0, None)],
+                -1))
+            assert np.array_equal(got.margins_topk, want.margins_topk)
+        # one scan a covered shard a query: 2 + 2 + 1
+        assert router_scans == 5
+        assert router.stats()["timeouts"] == 0
+    finally:
+        router.close()
+
+
+@pytest.mark.parametrize("d", [65, 385, 26_215])
+def test_margins_do_not_depend_on_candidate_position(cuda, d):
+    """A row's exact margin is the same wherever it sits among the
+    candidates: the same rows gathered one slot further along (every row
+    start moved by d floats) give bit-identical margins, as the router's
+    cross-shard re-rank needs."""
+    from repro_torch.core.search import margin_batch, margin_rerank_batch
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(500, d)).astype(np.float32)).to(
+        cuda)
+    w = torch.from_numpy(rng.normal(size=(4, d)).astype(np.float32)).to(
+        cuda)
+    rows = torch.from_numpy(rng.integers(0, 500, (4, 37))).to(cuda)
+    valid = torch.ones_like(rows, dtype=torch.bool)
+    m0 = margin_batch(x, w, rows, valid)
+    for shift in (1, 2, 3, 5):
+        pad = torch.zeros((4, shift), dtype=rows.dtype, device=cuda)
+        m = margin_batch(x, w, torch.cat([pad, rows], 1),
+                         torch.cat([valid[:, :shift], valid], 1))
+        assert torch.equal(m[:, shift:], m0)
+    top_m, top_i = margin_rerank_batch(x, w, rows, valid, 37)
+    assert torch.equal(top_m, torch.gather(m0, 1, torch.argsort(
+        m0, dim=1, stable=True)))

@@ -287,8 +287,8 @@ def test_empty_index_and_unported_paths(corpus, queries):
     assert np.array_equal(dl, df) and np.array_equal(il, i_f + 50)
     with pytest.raises(NotImplementedError, match="mesh"):
         lsm.query_scan_batch(queries[:3], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        HashQueryService(lsm).refresh()
+    assert HashQueryService(lsm).refresh()   # the refresh is ported
+    assert lsm.generation == 1 and lsm.n == 10
 
 
 def test_background_compactor_under_live_queries(corpus, queries):
