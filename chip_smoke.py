@@ -1651,8 +1651,7 @@ def main() -> int:
             ids_before = rlsm.ids_np[rlsm.active].copy()
         # deleted while the refresh runs: the swap must reconcile them
         r_dead = rrng.choice(ids_before, REFRESH_DELETES, replace=False)
-        check(rsvc.refresh(wait=False, warm_batches=(BATCH,),
-                           warm_l=SCAN_L), "the refresh started")
+        check(rsvc.refresh(wait=False), "the refresh started")
         t_refresh = time.perf_counter()
         j = 0
         while mgr.stats()["busy"]:

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.RLock()    # build / load: one first use at a time
 _COUNT_LOCK = threading.Lock()
+_first_uses = 0    # builds and first loads under way (guarded by _COUNT_LOCK)
 
 
 def count(fn, attr: str = "launches", n: int = 1) -> None:
@@ -71,8 +72,26 @@ def build(names) -> None:
     ``-Xptxas -v`` register / shared-memory / spill report) is kept beside
     each library; see ``build_log``.  The temporary file carries the
     process and the thread id, so no two threads write one file."""
-    with _BUILD_LOCK:
-        _build_locked(names)
+    _note_first_use(1)
+    try:
+        with _BUILD_LOCK:
+            _build_locked(names)
+    finally:
+        _note_first_use(-1)
+
+
+def _note_first_use(n: int) -> None:
+    global _first_uses
+    with _COUNT_LOCK:
+        _first_uses += n
+
+
+def building() -> bool:
+    """True while a build, or a first load waiting for one, is under way in
+    this process: a caller's deadline (the router's per-replica call) does
+    not count a first use's nvcc time."""
+    with _COUNT_LOCK:
+        return _first_uses > 0
 
 
 def _build_locked(names) -> None:
@@ -116,15 +135,19 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    with _BUILD_LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            so = library_path(name)
-            if not so.exists():
-                build([name])
-            lib = ctypes.CDLL(str(so))
-            for fn, (restype, argtypes) in signatures.items():
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = argtypes
-            _LIBS[name] = lib
+    _note_first_use(1)
+    try:
+        with _BUILD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                so = library_path(name)
+                if not so.exists():
+                    build([name])
+                lib = ctypes.CDLL(str(so))
+                for fn, (restype, argtypes) in signatures.items():
+                    getattr(lib, fn).restype = restype
+                    getattr(lib, fn).argtypes = argtypes
+                _LIBS[name] = lib
+    finally:
+        _note_first_use(-1)
     return lib

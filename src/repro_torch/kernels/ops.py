@@ -11,7 +11,9 @@ from repro_torch.core.functions import strict_fp32
 from repro_torch.core.search import (DIST_SENTINEL, _pad_topk,
                                      env_cand_pack, env_fused_select,
                                      lex_smallest)
+from repro_torch.kernels import _build
 from repro_torch.kernels import bilinear_hash as _bh
+from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import lbh_grad as _lbh
 from repro_torch.kernels.bilinear_hash import \
     bilinear_hash_seeded as _bilinear_hash_seeded
@@ -34,6 +36,18 @@ def _block_rows(n: int, block_n: int) -> int:
     geometry, so block-local outputs line up with its kernel's)."""
     bn = min(block_n, max(256, n))
     return -(-bn // SUBLANE) * SUBLANE
+
+
+def load_libraries() -> None:
+    """Build every kernel library not built yet (one nvcc per source, all
+    started together) and load it, so that no first use falls inside a
+    caller's deadline.  Raises as a failed build does."""
+    libs = {_bh.LIBRARY: _bh._SIGNATURES,
+            _bh.FACTORS_LIBRARY: _bh._FACTORS_SIGNATURES,
+            _lbh.LIBRARY: _lbh._SIGNATURES, **_hm._SIGNATURES}
+    _build.build(list(libs))
+    for name, signatures in libs.items():
+        _build.load(name, signatures)
 
 
 def bilinear_hash(x, u, v) -> torch.Tensor:

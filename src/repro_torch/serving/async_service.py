@@ -435,8 +435,7 @@ class AsyncHashQueryService:
 
     # -- online refresh ------------------------------------------------------
 
-    def refresh(self, wait: bool = True, warm_batches: tuple = (),
-                warm_l: int | None = None) -> bool:
+    def refresh(self, wait: bool = True) -> bool:
         """Trigger an online re-learn and generation swap (see
         ``HashQueryService.refresh``).  The learn and build phases run
         outside ``_service_lock``: flushes keep flowing against the old
@@ -446,8 +445,7 @@ class AsyncHashQueryService:
             service = self.service
         # delegate off the lock: the refresh manager serialises itself and
         # the index lock guards the swap
-        return service.refresh(wait=wait, warm_batches=warm_batches,
-                               warm_l=warm_l)
+        return service.refresh(wait=wait)
 
     # -- counters ------------------------------------------------------------
 

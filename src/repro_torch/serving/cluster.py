@@ -55,9 +55,22 @@ answer.  Here only the failures a replica can have count: an injected
 (a kernel wrapper's or the kernel build's ``RuntimeError``, a CUDA error,
 a caller's ``ValueError``) propagates out of the query or the write, with
 no replica marked down: a scan kernel that fails to build or launch must
-fail the call, not show up as ``coverage < 1``.  A write push that raises
-such an error leaves its replica behind the log, so that replica is taken
-out of rotation (to catch up at re-admission) and the error is raised.
+fail the call, not show up as ``coverage < 1``.  Two such errors cannot
+propagate at once, and are recorded on the replica instead
+(``_ReplicaHealth.error``), which goes out of rotation:
+
+- a write push that raises leaves its replica behind the log; the write
+  is committed to the router's log all the same (ids assigned, the other
+  replicas updated), and the error is raised after every push was tried;
+- a call abandoned at its deadline that then ends in such an error.
+
+While a replica is out of rotation for a recorded error, every query and
+every write raises that error (a write before it touches the log), and no
+query answers degraded in its place.  Re-admission clears it: probes,
+then the catch-up, which hashes the shard's rows again and so raises the
+error anew if its cause persists.  The deadline does not count a kernel
+library's first-use build (``kernels._build.building``); on the card the
+router loads every library at construction, outside any deadline.
 """
 from __future__ import annotations
 
@@ -70,6 +83,7 @@ import numpy as np
 
 from repro_torch.core.indexer import IndexConfig, make_family
 from repro_torch.core.search import DIST_SENTINEL, merge_topk_shards
+from repro_torch.kernels import _build, ops
 from repro_torch.serving.faults import FaultError, FaultPlan
 from repro_torch.serving.lsm import (_MIN_CAP, LSMMultiTableIndex,
                                      _pow2_at_least, release)
@@ -91,13 +105,14 @@ _REPLICA_FAILURES = (FaultError, ShardCallTimeout)
 
 
 class _ReplicaHealth:
-    __slots__ = ("alive", "fails", "probe_ok", "applied")
+    __slots__ = ("alive", "fails", "probe_ok", "applied", "error")
 
     def __init__(self):
         self.alive = True
         self.fails = 0        # consecutive call failures while alive
         self.probe_ok = 0     # consecutive probe successes while down
         self.applied = 0      # writes applied (vs the shard's write count)
+        self.error = None     # the non-fault error that took it down
 
 
 class ShardReplicaRouter:
@@ -178,6 +193,9 @@ class ShardReplicaRouter:
             thread_name_prefix="cluster-call")
         self._shard_pool = ThreadPoolExecutor(
             max_workers=self.shards, thread_name_prefix="cluster-shard")
+        if self.device.type == "cuda":
+            # every kernel library now, not at a first use under a deadline
+            ops.load_libraries()
 
     # -- build / writes ------------------------------------------------------
 
@@ -214,6 +232,7 @@ class ShardReplicaRouter:
             for row in self._health:
                 for h in row:
                     h.alive, h.fails, h.probe_ok, h.applied = True, 0, 0, 0
+                    h.error = None
             self.version += 1
         return self
 
@@ -232,13 +251,17 @@ class ShardReplicaRouter:
         """Append rows (round-robin by global id).  Succeeds logically
         even with replicas down: the router's row log is the truth, and a
         replica that missed the write repairs from it at re-admission.
-        Returns the assigned global ids."""
+        Returns the assigned global ids.  A replica's non-fault error
+        raises after the rows are committed (see the module docstring): do
+        not retry the insert, the rows are in under the ids that follow the
+        previous high-water mark."""
         x_new = np.atleast_2d(np.asarray(x_new, np.float32))
         k = x_new.shape[0]
         if k == 0:
             return np.empty((0,), dtype=np.int64)
         pushes = []
         with self._mu:
+            self._raise_recorded_error()
             if self._shard_x[0] is None:
                 raise RuntimeError("ShardReplicaRouter.insert before fit()")
             if x_new.shape[1] != self._shard_x[0].shape[1]:
@@ -275,7 +298,8 @@ class ShardReplicaRouter:
         """Tombstone rows by global id.  Checked against the router's own
         row log first (unknown, deleted or duplicate ids raise KeyError, as
         for a single index: a bad id is the caller's error, never a health
-        event), then pushed to the current replicas."""
+        event), then pushed to the current replicas.  As for ``insert``, a
+        replica's non-fault error raises after the delete is committed."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
         if ids.size == 0:
             return
@@ -283,6 +307,7 @@ class ShardReplicaRouter:
             raise KeyError("duplicate ids in delete")
         pushes = []
         with self._mu:
+            self._raise_recorded_error()
             if ids.min() < 0 or ids.max() >= self._next_id:
                 raise KeyError(f"unknown ids (never assigned): "
                                f"{ids[(ids < 0) | (ids >= self._next_id)][:8]}")
@@ -335,14 +360,14 @@ class ShardReplicaRouter:
     def _push_write(self, s: int, r: int, fn) -> None:
         """One replica write through the fault seam.  A failure demotes the
         replica: it is behind the log whatever the cause; a non-fault
-        error is raised too."""
+        error is recorded on it and raised."""
         try:
             self._guarded_call(s, r, "write", fn)
         except FaultError:
             self._note_failure(s, r, force_down=True)
             return
-        except Exception:
-            self._note_failure(s, r, force_down=True)
+        except Exception as e:
+            self._note_failure(s, r, force_down=True, error=e)
             raise
         with self._mu:
             self._health[s][r].applied += 1
@@ -358,16 +383,38 @@ class ShardReplicaRouter:
         return fn()
 
     def _note_failure(self, s: int, r: int, force_down: bool = False,
-                      timeout: bool = False) -> None:
+                      timeout: bool = False, error=None) -> None:
         with self._mu:
             h = self._health[s][r]
             h.fails += 1
             h.probe_ok = 0
             if timeout:
                 self.timeouts += 1
+            if error is not None and h.error is None:
+                h.error = error
             if h.alive and (force_down or h.fails >= self.fail_threshold):
                 h.alive = False
                 self.replica_downs += 1
+
+    def _note_late_error(self, s: int, r: int, fut) -> None:
+        """Done-callback of a call abandoned at its deadline: an error that
+        is not a replica failure is recorded on the replica, which leaves
+        the rotation, so the next query or write raises it."""
+        e = None if fut.cancelled() else fut.exception()
+        if e is not None and not isinstance(e, _REPLICA_FAILURES):
+            self._note_failure(s, r, force_down=True, error=e)
+
+    def _recorded_error(self):
+        # _mu lock held by caller: the first recorded non-fault error of a
+        # replica out of rotation (raised in place of a degraded answer)
+        return next((h.error for row in self._health for h in row
+                     if h.error is not None), None)
+
+    def _raise_recorded_error(self) -> None:
+        # _mu lock held by caller
+        err = self._recorded_error()
+        if err is not None:
+            raise err
 
     def _note_success(self, s: int, r: int) -> None:
         with self._mu:
@@ -376,20 +423,29 @@ class ShardReplicaRouter:
     def _attempt(self, s: int, r: int, op: str, fn):
         """One deadline-bounded replica call, run on _call_pool so this
         (ladder) thread can abandon a late attempt; the stray call ends
-        on its own and its result is dropped.  Only a timeout or an
-        injected fault counts against the replica; any other error
-        propagates (see the module docstring)."""
+        on its own, its result is dropped and its non-fault error is
+        recorded (``_note_late_error``).  Only a timeout or an injected
+        fault counts against the replica; any other error propagates (see
+        the module docstring).  While a kernel library builds, the
+        deadline waits: a first-use build is the program's set-up, not
+        the replica's lateness, and its error propagates."""
         fut = self._call_pool.submit(self._guarded_call, s, r, op, fn)
-        try:
-            out = fut.result(timeout=self.deadline_s)
-        except _FutTimeout:
-            self._note_failure(s, r, timeout=True)
-            raise ShardCallTimeout(
-                f"shard {s} replica {r} {op} past "
-                f"{self.deadline_s * 1e3:.0f} ms deadline") from None
-        except FaultError:
-            self._note_failure(s, r)
-            raise
+        while True:
+            try:
+                out = fut.result(timeout=self.deadline_s)
+                break
+            except _FutTimeout:
+                if _build.building():
+                    continue
+                self._note_failure(s, r, timeout=True)
+                fut.add_done_callback(
+                    lambda f, s=s, r=r: self._note_late_error(s, r, f))
+                raise ShardCallTimeout(
+                    f"shard {s} replica {r} {op} past "
+                    f"{self.deadline_s * 1e3:.0f} ms deadline") from None
+            except FaultError:
+                self._note_failure(s, r)
+                raise
         self._note_success(s, r)
         return out
 
@@ -463,7 +519,7 @@ class ShardReplicaRouter:
             with self._mu:
                 h = self._health[s][r]
                 h.alive, h.fails, h.probe_ok = True, 0, 0
-                h.applied = writes_at
+                h.applied, h.error = writes_at, None
                 self.readmits += 1
 
     def _catchup_replica(self, s: int, rep, writes_at: int) -> bool:
@@ -529,14 +585,21 @@ class ShardReplicaRouter:
                          mesh=None) -> BatchQueryResult:
         """Cluster-wide scan answer (the protocol in the module
         docstring).  A replica's timeout or injected fault shrinks
-        ``coverage`` instead of raising; any other error raises.  ``mask``
-        is a bool mask over the global stable-id space."""
+        ``coverage`` instead of raising; any other error raises, and so
+        does an error recorded on a replica still out of rotation.
+        ``mask`` is a bool mask over the global stable-id space."""
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         t0 = time.perf_counter()
+        with self._mu:
+            recorded = self._recorded_error()
+        # the probes advance (and may re-admit) either way, but a recorded
+        # error seen before them raises: re-admission does not swallow it
         self._probe_down_replicas()
+        if recorded is not None:
+            raise recorded
         with self._mu:
             if self._shard_x[0] is None:
                 raise RuntimeError("ShardReplicaRouter.query_scan_batch "
@@ -563,13 +626,19 @@ class ShardReplicaRouter:
                 for s in range(self.shards) if live[s] > 0}
         scans: dict[int, tuple] = {}
         served: dict[int, int] = {}
+        error = None
         for s, fut in futs.items():
             try:
                 r, d, g = fut.result()
             except ShardUnavailableError:
                 continue
+            except Exception as e:   # raised once every shard's scan ended
+                error = error or e
+                continue
             scans[s] = (d, g)
             served[s] = r
+        if error is not None:
+            raise error
         lookup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         # phases 2 and 3, again without a shard whose margins call failed
@@ -694,7 +763,8 @@ class ShardReplicaRouter:
         with self._mu:
             return [[{"alive": h.alive, "fails": h.fails,
                       "probe_ok": h.probe_ok, "applied": h.applied,
-                      "writes": self._writes[s]}
+                      "writes": self._writes[s],
+                      "error": None if h.error is None else repr(h.error)}
                      for h in self._health[s]]
                     for s in range(self.shards)]
 

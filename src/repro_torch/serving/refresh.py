@@ -23,9 +23,9 @@ but the last off the query path:
    its base bucket at least the live one.
 4. **catch-up and warm-up**: rows inserted meanwhile (ids past the
    snapshot's high-water mark) are hashed under the new families and
-   appended to the shadow's delta, until the gap stops moving; then a few
-   scan batches run against the shadow, which uploads its base to the
-   device before the swap instead of inside the first query after it.
+   appended to the shadow's delta, until the gap stops moving; then, for
+   a scanning service, the shadow's base goes to the device before the
+   swap instead of inside the first query after it (``_warm``).
 5. **swap**: one bounded critical section under the index lock: the last
    catch-up, a liveness reconcile (rows deleted meanwhile are tombstoned in
    the shadow) and ``LSMMultiTableIndex._adopt_refresh``'s pointer flips.
@@ -144,23 +144,21 @@ class RefreshManager:
 
     # -- trigger -------------------------------------------------------------
 
-    def refresh(self, wait: bool = True, warm_batches: tuple = (),
-                warm_l: int = 16) -> bool:
+    def refresh(self, wait: bool = True, warm: bool = False) -> bool:
         """Run one refresh.  wait=False runs it on a daemon worker
         (``wait_idle`` joins it).  Returns False when a refresh is already
         in flight (the trigger is coalesced) or the index has no live rows.
-        warm_batches: batch sizes of scan queries run against the shadow
-        before the swap (pass the serving batch size); warm_l: their scan
-        depth (the service's scan_l)."""
+        warm: put the shadow's base on the device before the swap (a
+        scanning service asks for it; the JAX package's warm scan batches,
+        which pre-compile its traces, have nothing to compile here)."""
         with self._mu:
             if self._busy:
                 return False
             self._busy = True
             self.refreshes_started += 1
         if wait:
-            return self._run_guarded(warm_batches, warm_l)
-        t = threading.Thread(target=self._run_guarded,
-                             args=(warm_batches, warm_l, False),
+            return self._run_guarded(warm)
+        t = threading.Thread(target=self._run_guarded, args=(warm, False),
                              name="index-refresh", daemon=True)
         with self._mu:
             self._thread = t
@@ -174,8 +172,7 @@ class RefreshManager:
         if t is not None:
             t.join(timeout)
 
-    def _run_guarded(self, warm_batches, warm_l,
-                     reraise: bool = True) -> bool:
+    def _run_guarded(self, warm: bool, reraise: bool = True) -> bool:
         """Run one refresh and always release the busy flag.  Phases 1-4
         only read the live index (the shadow is private), so a failure
         before the swap leaves the live generation as it was, no lock held
@@ -183,7 +180,7 @@ class RefreshManager:
         exception; the background worker records it (``last_error``,
         ``refreshes_failed``)."""
         try:
-            ok = self._run(warm_batches, warm_l)
+            ok = self._run(warm)
         except BaseException as e:
             self.refreshes_failed += 1
             self.last_error = f"{type(e).__name__}: {e}"
@@ -199,7 +196,7 @@ class RefreshManager:
 
     # -- the refresh ---------------------------------------------------------
 
-    def _run(self, warm_batches, warm_l) -> bool:
+    def _run(self, warm: bool) -> bool:
         idx = self.index
         cfg = idx.config
         t_all = time.perf_counter()
@@ -242,8 +239,8 @@ class RefreshManager:
             if seen2 == seen:
                 break
             seen = seen2
-        if warm_batches:
-            self._warm(shadow, x_snap, warm_batches, warm_l)
+        if warm:
+            self._warm(shadow)
         self.last_build_s = time.perf_counter() - t0
 
         # phase 5: the swap, the only pause traffic can see
@@ -303,15 +300,11 @@ class RefreshManager:
         if dead.size:
             shadow.delete(dead)
 
-    def _warm(self, shadow: LSMMultiTableIndex, x_snap: np.ndarray,
-              warm_batches, warm_l: int) -> None:
-        """Scan batches against the shadow before the swap: they upload its
-        base (codes, liveness, features) to the device, and
-        ``_adopt_refresh`` adopts those copies, so the first query of the
-        new generation pays no upload inside its batch."""
-        n = x_snap.shape[0]
-        for b in warm_batches:
-            shadow.query_scan_batch(x_snap[np.arange(int(b)) % n], l=warm_l)
+    def _warm(self, shadow: LSMMultiTableIndex) -> None:
+        """Upload the shadow's base (codes, liveness, features) before the
+        swap; ``_adopt_refresh`` adopts those copies, so the first query of
+        the new generation pays no upload inside its batch."""
+        shadow.upload_base()
 
     # -- counters ------------------------------------------------------------
 

@@ -113,24 +113,17 @@ class HashQueryService:
 
     # -- online refresh ------------------------------------------------------
 
-    def refresh(self, wait: bool = True, warm_batches: tuple = (),
-                warm_l: int | None = None) -> bool:
+    def refresh(self, wait: bool = True) -> bool:
         """Re-learn the hash families from the accumulated rows and swap the
         rebuilt index in (``serving.refresh.RefreshManager``; needs the LSM
         index).  wait=False runs it on a background worker, off the query
-        path.  Returns False when a refresh is already in flight.
-        warm_batches: batch sizes scanned against the new generation before
-        the swap (scan mode defaults to this service's max_batch); warm_l:
-        their scan depth (default: this service's scan_l)."""
+        path.  Returns False when a refresh is already in flight.  In scan
+        mode the new generation's base is on the device before the swap."""
         if self.refresher is None:
             raise RuntimeError(
                 "refresh() requires an index with generation-swap support "
                 "(serving.lsm.LSMMultiTableIndex)")
-        if not warm_batches and self.mode == "scan":
-            warm_batches = (self.max_batch,)
-        return self.refresher.refresh(
-            wait=wait, warm_batches=warm_batches,
-            warm_l=self.scan_l if warm_l is None else int(warm_l))
+        return self.refresher.refresh(wait=wait, warm=self.mode == "scan")
 
     def _maybe_refresh(self) -> None:
         """Auto policy: start a background refresh once

@@ -377,6 +377,133 @@ def test_kernel_error_raises_instead_of_degrading(monkeypatch):
                         _fresh(x).query_scan_batch(w, l=16, topk=2))
 
 
+def test_first_use_build_error_raises_instead_of_degrading(tmp_path,
+                                                          monkeypatch):
+    """A kernel library built at its first use inside a replica call: nvcc
+    (a script here that fails after 0.3 s) outlasts the 50 ms deadline, but
+    the deadline does not count a build, so the build's error raises out of
+    query_scan_batch; no replica times out or goes down, no answer
+    degrades."""
+    from repro_torch.kernels import _build
+    x = _corpus()
+    router = _router(x, deadline_ms=50.0)
+    w = _queries()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "cold.cu").write_text("int a;\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nsleep 0.3\necho 'cold.cu: error'\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    scan = ops.hamming_topk_hist
+
+    def cold_scan(*a, **k):
+        _build.load("cold", {})
+        return scan(*a, **k)
+
+    monkeypatch.setattr(ops, "hamming_topk_hist", cold_scan)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        router.query_scan_batch(w, l=16)
+    st = router.stats()
+    assert st["timeouts"] == 0 and st["replica_downs"] == 0
+    assert st["failovers"] == 0 and st["degraded_answers"] == 0
+    assert not _build.building()
+    monkeypatch.undo()
+    _assert_same_answer(router.query_scan_batch(w, l=16, topk=2),
+                        _fresh(x).query_scan_batch(w, l=16, topk=2))
+
+
+def _wait_for(cond, timeout=10.0):
+    import time
+    t_end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < t_end, "condition not reached"
+        time.sleep(0.01)
+
+
+def test_late_kernel_error_is_raised_by_the_next_query(monkeypatch):
+    """A scan that outlasts the deadline and then fails with a non-fault
+    error: that query degrades (its replicas were late: real timeouts), and
+    the late error, recorded on the replicas when their abandoned calls
+    end, raises out of the next write (before it touches the log) and the
+    next query instead of another degraded answer.  The query's probes
+    re-admit the replicas, so the one after answers in full."""
+    import time
+    x = _corpus()
+    router = _router(x, deadline_ms=50.0, readmit_probes=1)
+    w = _queries()
+
+    def late(*a, **k):
+        time.sleep(0.2)
+        raise RuntimeError("topk_hist launch failed: CUDA error 700")
+
+    monkeypatch.setattr(ops, "hamming_topk_hist", late)
+    res = router.query_scan_batch(w, l=16)
+    assert res.coverage == 0.0 and res.degraded
+    assert router.stats()["timeouts"] == SHARDS * REPLICAS
+    _wait_for(lambda: all(h["error"] for row in router.health()
+                          for h in row))
+    monkeypatch.undo()
+    version = router.stats()["version"]
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        router.insert(x[:3])
+    assert router.stats()["version"] == version and router.n == x.shape[0]
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        router.query_scan_batch(w, l=16)
+    assert router.stats()["degraded_answers"] == 1
+    assert all(h["alive"] and h["error"] is None
+               for row in router.health() for h in row)
+    _assert_same_answer(router.query_scan_batch(w, l=16, topk=2),
+                        _fresh(x).query_scan_batch(w, l=16, topk=2))
+
+
+def test_write_kernel_error_raises_from_queries_until_caught_up(monkeypatch):
+    """A hash kernel that fails on an insert: the rows are committed to the
+    router's log (the insert raises after every push was tried) and every
+    replica that raised leaves the rotation with the error recorded.  Until
+    they are re-admitted, a retried write raises before touching the log
+    and every query raises the error instead of answering degraded; the
+    re-admission catches them up from the log, and the answers equal a
+    fresh index's over all rows, the committed insert's included."""
+    x = _corpus()
+    router = _router(x, readmit_probes=2)
+    ref = _fresh(x)
+    w = _queries()
+    extra = _corpus(n=13, seed=9)
+
+    def broken(*a, **k):
+        raise RuntimeError("bh_seeded launch failed: CUDA error 98")
+
+    monkeypatch.setattr(ops, "bilinear_hash_seeded_grouped", broken)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        router.insert(extra)
+    monkeypatch.undo()
+    ref.insert(extra)
+    assert router.n == ref.n
+    assert all(not h["alive"] and "CUDA error 98" in h["error"]
+               for row in router.health() for h in row)
+    version = router.stats()["version"]
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        router.insert(extra)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        router.delete([5])
+    assert router.stats()["version"] == version and router.n == ref.n
+    for _ in range(2):      # the second query's probes catch up, re-admit
+        with pytest.raises(RuntimeError, match="CUDA error 98"):
+            router.query_scan_batch(w, l=16)
+    st = router.stats()
+    assert st["degraded_answers"] == 0
+    assert st["catchups"] == SHARDS * REPLICAS
+    assert all(h["alive"] and h["error"] is None
+               for row in router.health() for h in row)
+    res = router.query_scan_batch(w, l=16, topk=3)
+    assert res.coverage == 1.0
+    _assert_same_answer(res, ref.query_scan_batch(w, l=16, topk=3))
+
+
 # -- service integration -------------------------------------------------------
 
 
