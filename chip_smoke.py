@@ -56,8 +56,16 @@ Then two more paths at full size:
   over the covered rows, then a ``FaultPlan.seeded`` soak of 64
   micro-batches with writes.
 
+Then the row-sharded scan (``mesh=``), S shards co-located on the card:
+the serving path's index at S = 2 and 3 (hist, and argmin at S = 3) and
+its service, ``hamming_topk_sharded``, the streaming path's LSM index
+with 40,000 base tombstones and 5,000 delta rows before and after a
+fold, and the cluster path's router, each against the same object
+without a mesh, bit for bit, with S scan launches per micro-batch.
+
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.  Every phase that fails stops the run with a
+and read just after; the kernels' JSON reports kernels 1, 2 and 5 with
+the sharded path's launches.  Every phase that fails stops the run with a
 non-zero exit.  The second-to-last line of its output is the kernels' JSON
 record, the last ``{"ok": true, "device": {...}}``.
 
@@ -92,6 +100,9 @@ NG_D = 26_214
 REFRESH_INSERTS, REFRESH_INSERT_ROWS, REFRESH_DELETES = 20_000, 500, 1_000
 CLUSTER_BATCHES, CLUSTER_INSERTS, CLUSTER_DELETES = 32, 10_000, 5_000
 SOAK_BATCHES = 64
+# the sharded phase: rows inserted into the LSM index's delta (past
+# lsm_delta_fused_rows, so the delta scans on the kernel route)
+SHARD_INSERTS = 5_000
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
 # cores; popcount issues 16 results per clock per SM (CUDA programming
 # guide, compute capability 9.0), at the card's maximum SM clock.
@@ -206,6 +217,251 @@ def library_hash(x, factors):
     v = torch.stack([f[1] for f in factors])
     with strict_fp32():
         return pack_signs(_sgn(torch.matmul(x, u) * torch.matmul(x, v)))
+
+
+def batch_diff(got, want) -> dict:
+    """Entries that differ between two lists of BatchQueryResult."""
+    diff = dict.fromkeys(("ids", "margins", "ids_topk", "margins_topk",
+                          "table_hits", "nonempty", "candidate_lists"), 0)
+    for a, b in zip(got, want, strict=True):
+        for k in ("ids", "margins", "ids_topk", "margins_topk",
+                  "table_hits", "nonempty"):
+            diff[k] += int((getattr(a, k) != getattr(b, k)).sum())
+        diff["candidate_lists"] += sum(
+            not (x.shape == y.shape and (x == y).all())
+            for x, y in zip(a.candidates, b.candidates, strict=True))
+    return diff
+
+
+def sharded_phase(args, index, lsm, router, ws, wq, x_extra, deletes,
+                  zero_counts, read_counts, records, smi,
+                  device="cuda:0") -> dict:
+    """The row-sharded scan (``mesh=``) at full size, S shards co-located
+    on one card: tiny1m-scan's index at S = 2 and 3 (and under the argmin
+    select), its service, ``hamming_topk_sharded``, the streaming path's
+    LSM index with base tombstones and a delta, before and after a fold,
+    and the cluster path's router; every answer against the same object
+    without a mesh, bit for bit.  Returns the launches of the counted
+    runs (the index's and the service's micro-batches)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.hamming import (
+        hamming_topk_fused, hamming_topk_fused_plain, hamming_topk_hist,
+        hamming_topk_hist_plain)
+    from repro_torch.serving import batch_query as bq
+    from repro_torch.serving.lsm import _pow2_at_least
+    from repro_torch.serving.service import HashQueryService
+    from repro_torch.utils.bits import from_numpy_u32
+    from repro_torch.utils.mesh import make_mesh
+    meshes = {s: make_mesh((s,), ("data",), devices=[device] * s)
+              for s in (2, 3)}
+    torch.cuda.reset_peak_memory_stats()
+    batches = [ws[i * BATCH:(i + 1) * BATCH] for i in range(args.batches)]
+    shard_launches = dict.fromkeys(read_counts(), 0)
+    times = {}
+
+    def run(mesh):
+        """The micro-batches through index.query_scan_batch: results and
+        host seconds per batch (each ends in host arrays)."""
+        res, lat = [], []
+        for wb in batches:
+            t = time.perf_counter()
+            res.append(index.query_scan_batch(wb, l=SCAN_L, topk=4,
+                                              mesh=mesh))
+            lat.append(time.perf_counter() - t)
+        return res, lat
+
+    def counted(fn):
+        """fn() with every count set to 0 just before and read after."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = read_counts()
+        for k, v in c.items():
+            shard_launches[k] += v
+        return out, c
+
+    def rate(lat):
+        return {"qps": len(lat) * BATCH / float(np.sum(lat)),
+                "p95_ms": 1e3 * float(np.quantile(lat, 0.95)),
+                "mean_ms": 1e3 * float(np.mean(lat))}
+
+    index._scan_state()               # the single-device layout (set-up)
+    want, lat = run(None)
+    times["index_unsharded"] = rate(lat)
+    nb = args.batches
+
+    def index_at(shards, label, select="hist"):
+        mesh = meshes[shards]
+        rebuilds = index.scan_state_rebuilds + (index._scan_key
+                                                != (mesh, "data"))
+        index._scan_state(mesh, "data")   # the layout build: set-up
+        uploads = index.device_uploads
+        index.config.fused_select = select
+        try:
+            (got, lat), c = counted(lambda: run(mesh))
+        finally:
+            index.config.fused_select = None
+        diff = batch_diff(got, want)
+        check(not any(diff.values()), f"index at S = {shards} ({select}): "
+              f"answers identical to the unsharded scan (differ: {diff})")
+        kern = "hamming_topk_hist" if select == "hist" else \
+            "hamming_topk_fused"
+        other = "hamming_topk_fused" if select == "hist" else \
+            "hamming_topk_hist"
+        check(c["bilinear_hash_seeded"] == nb and c[kern] == shards * nb
+              and c[other] == 0,
+              f"index at S = {shards} ({select}): one hash and {shards} "
+              f"{kern} launches per micro-batch (counts {c})")
+        check(index.scan_state_rebuilds == rebuilds
+              and index.device_uploads == uploads,
+              f"index at S = {shards}: one layout build for the mesh, no "
+              f"upload after it")
+        times[label] = rate(lat)
+        print(f"index at S = {shards} ({select}): {nb} micro-batches "
+              f"identical to the unsharded scan; launches {c}", flush=True)
+
+    index_at(2, "index_S2")
+    # the service over the same mesh: phase 5's answers
+    svc = HashQueryService(index, mode="scan", scan_l=SCAN_L,
+                           mesh=meshes[2])
+    svc_res, c = counted(lambda: [a for wb in batches
+                                  for a in svc.query_batch(wb)])
+    plain = [index.query_scan_batch(wb, l=SCAN_L) for wb in batches]
+    check([a.index for a in svc_res]
+          == [int(i) for r in plain for i in r.ids]
+          and [a.margin for a in svc_res]
+          == [float(m) for r in plain for m in r.margins],
+          "the service with a mesh answers as the index without one")
+    check(c["hamming_topk_hist"] == 2 * nb and c["bilinear_hash_seeded"]
+          == nb, f"service at S = 2: 2 scan launches a batch ({c})")
+    print(f"service at S = 2: {len(svc_res)} answers identical; launches "
+          f"{c}")
+    index_at(3, "index_S3")
+    index_at(3, "index_S3_argmin", select="argmin")
+
+    # one query through hamming_topk_sharded: table 0's rows (1,060,000,
+    # which divide the 2 shards)
+    rows0 = index.codes[0].shape[0] // 2 * 2
+    codes0 = from_numpy_u32(index.codes[0][:rows0], index.device)
+    qc = bq.hash_queries_all(index.families, wq)
+    d1, i1 = search.hamming_topk_sharded(codes0, qc[0, 0], SCAN_L,
+                                         meshes[2])
+    d2, i2 = ops.hamming_topk(codes0, qc[0, 0], SCAN_L)
+    check(torch.equal(d1, d2) and torch.equal(i1, i2),
+          "hamming_topk_sharded at S = 2 equals ops.hamming_topk")
+    print("hamming_topk_sharded at S = 2 (one query, table 0): identical")
+    del codes0
+
+    # kernels 2 and 5 against their plain versions at a shard's shape
+    parts, _ = index._scan_state(meshes[3], "data")
+    rows = parts[0].shape[1]
+    l_local = SCAN_L + min(3 * rows - index.n, rows)
+    bn = ops._block_rows(rows, 4096)
+    for name, kern, plain_fn in (
+            ("hamming_topk_hist", hamming_topk_hist, hamming_topk_hist_plain),
+            ("hamming_topk_fused", hamming_topk_fused,
+             hamming_topk_fused_plain)):
+        kd, ki = kern(parts[0], qc, min(l_local, bn), bn, None, "16")
+        pd, pi = plain_fn(parts[0], qc, min(l_local, bn), bn, None, "16")
+        err = max(int((kd.long() - pd.long()).abs().max()),
+                  int((ki.long() - pi.long()).abs().max()))
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           err)
+        check(err == 0, f"{name} at a shard's shape (G=4, n={rows}, B=32, "
+              f"l={min(l_local, bn)}) equals its plain version")
+        print(f"{name} at a shard's shape (n={rows}, l={min(l_local, bn)}):"
+              f" identical to its plain version")
+    del parts, kd, ki, pd, pi
+
+    # the streaming path's LSM index: base tombstones and a delta
+    lrng = np.random.default_rng(args.seed + 5)
+    seg = lsm.segments()
+    check(seg["delta_rows"] == 0 and not seg["compaction_active"],
+          "the LSM index starts folded")
+    lsm.delete(lrng.choice(lsm.ids_np[:seg["base_rows"]], deletes,
+                           replace=False))
+    lsm.insert(x_extra)
+    seg = lsm.segments()
+    check(seg["delta_rows"] == x_extra.shape[0]
+          and not seg["compaction_active"],
+          "the deletes and the inserts began no fold")
+    depth = min(_pow2_at_least(SCAN_L + deletes),
+                _pow2_at_least(seg["base_rows"], 64))
+
+    def lsm_same(key, label):
+        lsm.query_scan_batch(wq, l=SCAN_L, topk=4, mesh=meshes[2])  # warm
+        d_m, i_m = lsm.scan_table_topk(wq, l=SCAN_L, mesh=meshes[2])
+        d_n, i_n = lsm.scan_table_topk(wq, l=SCAN_L)
+        check(np.array_equal(d_m, d_n) and np.array_equal(i_m, i_n),
+              f"LSM {label}: per-table lists with a mesh equal those "
+              f"without")
+        zero_counts()
+        a = lsm.query_scan_batch(wq, l=SCAN_L, topk=4, mesh=meshes[2])
+        torch.cuda.synchronize()
+        c = read_counts()
+        b = lsm.query_scan_batch(wq, l=SCAN_L, topk=4)
+        diff = batch_diff([a], [b])
+        check(not any(diff.values()), f"LSM {label}: answers with a mesh "
+              f"equal those without (differ: {diff})")
+        delta = lsm.segments()["delta_rows"]
+        scans = 2 + (delta >= lsm.config.lsm_delta_fused_rows)
+        check(c["hamming_topk_hist"] == scans
+              and c["bilinear_hash_seeded"] == 1,
+              f"LSM {label}: {scans} scan launches ({c})")
+        lat_m, lat_n = [], []
+        for _ in range(5):
+            t = time.perf_counter()
+            lsm.query_scan_batch(wq, l=SCAN_L, topk=4, mesh=meshes[2])
+            lat_m.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            lsm.query_scan_batch(wq, l=SCAN_L, topk=4)
+            lat_n.append(time.perf_counter() - t)
+        times[key] = {"mesh_batch_ms": 1e3 * float(np.mean(lat_m)),
+                      "batch_ms": 1e3 * float(np.mean(lat_n))}
+        print(f"LSM {label} (base {lsm.segments()['base_rows']}, delta "
+              f"{delta}): lists and answers with a mesh identical; "
+              f"launches {c}", flush=True)
+
+    lsm_same("lsm_tombstones", f"with {deletes} base tombstones (overscan "
+             f"depth {depth})")
+    rebuilds = lsm.scan_state_rebuilds
+    lsm.compact()
+    check(lsm.segments()["delta_rows"] == 0, "the fold took the delta")
+    lsm_same("lsm_folded", "after a fold")
+    check(lsm.scan_state_rebuilds >= rebuilds + 1,
+          "a mesh query after the fold rebuilt the sharded layout")
+
+    # the cluster path's router: each replica's scan row-sharded
+    for s in range(router.shards):
+        for r in range(router.replicas):
+            router.replica(s, r).scan_table_topk(wq, l=SCAN_L,
+                                                 mesh=meshes[2])  # warm
+    t_router = {}
+    for label, mesh in (("mesh", meshes[2]), ("plain", None)):
+        for _ in range(2):     # the first call may rebuild a layout
+            t = time.perf_counter()
+            res = router.query_scan_batch(wq, l=SCAN_L, topk=4, mesh=mesh)
+            t_router[label] = time.perf_counter() - t
+        if mesh is None:
+            b = res
+        else:
+            a = res
+    diff = batch_diff([a], [b])
+    check(a.coverage == b.coverage == 1.0 and not any(diff.values()),
+          f"router: answers with a mesh equal those without (coverage "
+          f"{a.coverage} / {b.coverage}, differ: {diff})")
+    times["router"] = {"mesh_batch_ms": 1e3 * t_router["mesh"],
+                       "batch_ms": 1e3 * t_router["plain"]}
+    print("router (2 x 2) with a mesh of 2: answers identical")
+    times["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print("sharded scan: " + json.dumps(times))
+    print(f"card: {smi}")
+    print(f"launches on the sharded path (index and service runs): "
+          f"{shard_launches}")
+    return shard_launches
 
 
 def main() -> int:
@@ -665,7 +921,7 @@ def main() -> int:
     print("micro-batch stages, ms per batch (synchronised): " + json.dumps(
         {k: 1e3 * v / args.batches for k, v in stage_s.items()}))
 
-    del index, service, codes_dev, codes_scan, m_min, i_min
+    del service, codes_dev, codes_scan, m_min, i_min   # index: phase 18
     torch.cuda.empty_cache()
 
     # -- 6. streaming path: the LSM index behind the async front end -------
@@ -942,7 +1198,7 @@ def main() -> int:
           "answers unchanged across the timed fold")
     print("streaming stages: " + json.dumps(stages))
     svc.close()
-    del lsm, svc, dev_codes, dev_x, c
+    del svc, dev_codes, dev_x, c                       # lsm: phase 18
     torch.cuda.empty_cache()
 
     # -- 8. factor hash kernel vs plain at the fit and query shapes --------
@@ -1870,8 +2126,7 @@ def main() -> int:
     check(cst["timeouts"] == 0, "no timeout on the healthy checks")
     print("router stats: " + json.dumps(
         {k: v for k, v in cst.items() if k not in ("health", "faults")}))
-    router.close()
-    del router, csvc
+    del csvc                                           # router: phase 18
     torch.cuda.empty_cache()
 
     # the seeded soak: scripted kills, flaps, drops and delays under
@@ -1920,15 +2175,24 @@ def main() -> int:
     del soak, ssvc
     torch.cuda.empty_cache()
 
-    # -- 18. times ----------------------------------------------------------
-    phase("18 times")
+    # -- 18. sharded scan: the mesh= paths, S shards on this card ----------
+    phase("18 sharded scan")
+    shard_launches = sharded_phase(
+        args, index, lsm, router, ws, wq, c_extra[:SHARD_INSERTS],
+        BASE_DELETES, zero_counts, read_counts, records, smi)
+    router.close()
+    del index, lsm, router
+    torch.cuda.empty_cache()
+
+    # -- 19. times ----------------------------------------------------------
+    phase("19 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []
     for name, rec in records.items():
-        path = (serve_launches if name in ("bilinear_hash_seeded",
-                                           "hamming_topk_hist")
-                else argmin_launches if name == "hamming_topk_fused"
+        path = (shard_launches if name in ("bilinear_hash_seeded",
+                                           "hamming_topk_hist",
+                                           "hamming_topk_fused")
                 else layer_launches if name in layer
                 else lbh_launches)
         rec["launches"] = path[name]

@@ -1,12 +1,22 @@
-"""Device-side Hamming search and exact-margin re-rank, single device.
+"""Device-side Hamming search and exact-margin re-rank: the single-device
+scan and the row-sharded scan over a mesh.
 
-Plain PyTorch: these functions run on whatever device their tensors live
-on and launch no hand-written kernel (the fused scan kernels are reached
-through ``repro_torch.kernels.ops``).  ``merge_topk_shards`` is host
-numpy: the replicated-shard router (``serving.cluster``) merges its shards'
-lists with it.  The sharded scan of the JAX package (``shard_map``,
-``mesh=``) and its helper ``drop_tombstones_topk`` are not ported yet
-(ROADMAP, queue 1 item 9).
+Plain PyTorch: the single-device functions run on whatever device their
+tensors live on and launch no hand-written kernel (the fused scan kernels
+are reached through ``repro_torch.kernels.ops``).  ``merge_topk_shards``
+is host numpy: the replicated-shard router (``serving.cluster``) merges
+its shards' lists with it.
+
+The row-sharded scan (``hamming_topk_sharded``,
+``hamming_topk_grouped_sharded``) splits the packed codes along rows over
+the shards of a ``utils.mesh.Mesh``.  One controller (this process) runs
+each shard's local scan through ``kernels.ops`` on the shard's device (a
+CUDA shard launches the scan kernel, a CPU shard takes its plain
+version), and only the shard's top-l (distance, id) pairs, narrowed to
+int16 where they fit, are copied to the queries' device: O(l · shards)
+per query, independent of n.  There they are widened and merged by
+(distance, id), so the answer equals the single-device scan's bit for
+bit, ties and l > n sentinels included.  Shards may share a device.
 
 Tie contract shared with the JAX package: top-l by (distance, id)
 ascending, ties to the lowest id, impossible slots (l > n, masked rows)
@@ -22,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.functions import strict_fp32
-from repro_torch.utils.bits import hamming_packed
+from repro_torch.utils.bits import from_numpy_u32, hamming_packed
+from repro_torch.utils.mesh import shard_count
 
 # Fill distance for masked rows and impossible top-k slots (l > n): far
 # above any real Hamming distance (<= 32·W) but negatable in int32.  The
@@ -185,6 +196,176 @@ def merge_topk_segments(d_a, i_a, d_b, i_b, l: int):
     d = torch.cat([d_a, d_b], dim=-1)
     i = torch.cat([i_a, i_b], dim=-1)
     return _pad_topk(*lex_smallest(d, i, l), l)
+
+
+def drop_tombstones_topk(dists, ids, active, l: int):
+    """Filter lex-sorted candidate lists down to their top-l LIVE entries.
+
+    active: (n_seg,) bool over the segment's local id space; False rows
+    (tombstones, padding past the segment's length) become
+    (DIST_SENTINEL, -1) and sort last.  The slack contract: the input must
+    be at least ``l + (#inactive rows)`` deep (or cover the whole segment)
+    for the result to equal the top-l of the live rows alone: at most
+    #inactive of the scanned slots can be dead, so l live candidates
+    survive and they are exactly the live top-l.
+    """
+    last = active.shape[0] - 1
+    ok = (ids >= 0) & active.to(torch.bool)[torch.clamp(ids, 0, last).long()]
+    d = torch.where(ok, dists, DIST_SENTINEL)
+    i = torch.where(ok, ids, -1)
+    return _pad_topk(*lex_smallest(d, i, l), l)
+
+
+# -- the row-sharded scan ---------------------------------------------------
+#
+# What crosses from a shard to the merge is bounded like a kernel block's
+# emission: distances <= 32·W and SHARD-LOCAL ids (< shard rows), the
+# global offset restored after the gather from the shard's position.
+# int16 halves the bytes; the widening restores the identical int32
+# values, so the merge and its tie order are unchanged bit for bit.
+_SENT16 = 0x7FFF      # kernels.hamming.CAND_SENTINELS["16"]
+
+
+def _narrow_gather(cd, ci, pack: str, w: int, rows: int):
+    """Narrow one shard's (…, l) candidate lists for the gather: sentinel
+    distances clamp to the int16 sentinel, -1 ids survive the cast.
+    Returns (cd, ci, packed_d, packed_i); either stays int32 when its
+    values do not fit (32·W >= the int16 sentinel, or shard rows past the
+    int16 id range) or pack is "none"."""
+    pack_d = pack != "none" and 32 * w < _SENT16
+    pack_i = pack != "none" and rows - 1 <= _SENT16
+    if pack_d:
+        cd = torch.clamp(cd, max=_SENT16).to(torch.int16)
+    if pack_i:
+        ci = ci.to(torch.int16)
+    return cd, ci, pack_d, pack_i
+
+
+def _widen_gather(all_d, all_i, pack_d: bool, pack_i: bool, rows: int):
+    """Undo ``_narrow_gather`` on the gathered (S, …) lists: widen to
+    int32, map the int16 sentinel back to DIST_SENTINEL, and add each
+    shard's global row offset (its position × shard rows) to the
+    non-sentinel ids."""
+    if pack_d:
+        all_d = all_d.to(torch.int32)
+        all_d = torch.where(all_d == _SENT16, DIST_SENTINEL, all_d)
+    if pack_i:
+        all_i = all_i.to(torch.int32)
+    shape = (all_i.shape[0],) + (1,) * (all_i.dim() - 1)
+    offsets = (torch.arange(all_i.shape[0], dtype=torch.int32,
+                            device=all_i.device) * rows).view(shape)
+    return all_d, torch.where(all_i < 0, -1, all_i + offsets)
+
+
+def shard_rows(codes, mesh, axis: str = "data") -> tuple:
+    """The per-shard layout of packed codes: the row axis (the second to
+    last) zero-padded to a multiple of the shard count, split into the
+    shards' contiguous row ranges, each placed on its shard's device.
+    codes: a host uint32 array (padded and split host-side, so only each
+    shard's range crosses to its device) or an int32 tensor."""
+    shards = shard_count(mesh, axis)
+    rows_dim = codes.ndim - 2
+    pad = -codes.shape[rows_dim] % shards
+    if torch.is_tensor(codes):
+        if pad:
+            codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+        return tuple(part.to(dev).contiguous() for part, dev in zip(
+            torch.chunk(codes, shards, dim=rows_dim), mesh.devices))
+    if pad:
+        widths = [(0, 0)] * codes.ndim
+        widths[rows_dim] = (0, pad)
+        codes = np.pad(codes, widths)
+    return tuple(from_numpy_u32(part, dev) for part, dev in zip(
+        np.split(codes, shards, axis=rows_dim), mesh.devices))
+
+
+def _gather(parts, dev):
+    """Stack per-shard tensors on dev; a copy to a card is asynchronous."""
+    return torch.stack([p.to(dev, non_blocking=dev.type == "cuda")
+                        for p in parts])
+
+
+def hamming_topk_sharded(codes, query, l: int, mesh, axis: str = "data",
+                         select: str | None = None, pack: str | None = None):
+    """Top-l Hamming scan of one query over a row-sharded code table.
+
+    codes: (n, W) int32, n a multiple of the shard count (as under the JAX
+    package's ``shard_map``); query: (W,).  The grouped scan below with one
+    group and one query: each shard's ``ops.hamming_topk`` launch on its
+    device, the (S, l) candidates merged by (distance, id) on the query's
+    device.  Returns (dists (l,), ids (l,)) int32 with global ids: ties to
+    the lowest global id, l > n slots (DIST_SENTINEL, -1), as
+    ``ops.hamming_topk`` gives on one device.
+    """
+    shards = shard_count(mesh, axis)
+    if codes.shape[0] % shards:
+        raise ValueError(f"{codes.shape[0]} code rows do not divide the "
+                         f"{shards} shards of mesh axis {axis!r}")
+    d, i = hamming_topk_grouped_sharded(codes[None], query[None, None], l,
+                                        mesh, axis, select=select, pack=pack)
+    return d[0, 0], i[0, 0]
+
+
+def hamming_topk_grouped_sharded(codes, queries, l: int, mesh,
+                                 axis: str = "data",
+                                 n_valid: int | None = None,
+                                 select: str | None = None,
+                                 pack: str | None = None):
+    """Grouped top-l scan over row-sharded codes: the multi-table
+    counterpart of ``hamming_topk_sharded``.
+
+    codes: (G, n, W) int32, split along rows here (n need not divide the
+    shard count: zero rows pad it), or the per-shard layout of
+    ``shard_rows`` that the serving paths cache, so that no call splits or
+    uploads again.  queries: (G, B, W) int32 on the device that gathers
+    and merges (the index's).  n_valid: the true row count (default n, or
+    every row of a per-shard layout); rows past it count as padding.
+    Returns (dists (G, B, l), ids (G, B, l)) int32 with global ids,
+    bit-identical to the single-device ``ops.hamming_topk_grouped``, tie
+    order and l > n_valid sentinels included.
+
+    Each shard runs ONE ``ops.hamming_topk_grouped`` launch for all G
+    groups and B queries at depth l_local = l plus the padding rows one
+    shard can see (the padding is a contiguous tail, so the extra slots
+    keep it from crowding a real global top-l row out of a shard's list);
+    padding rows then become sentinels, and only the (S, G, B, l_local)
+    pairs cross to the merge, which sorts them by (distance, id).
+    """
+    from repro_torch.kernels import ops
+    select, pack = env_fused_select(select), env_cand_pack(pack)
+    shards = shard_count(mesh, axis)
+    if torch.is_tensor(codes):
+        n = codes.shape[1]
+        codes = shard_rows(codes, mesh, axis)
+    else:
+        if len(codes) != shards:
+            raise ValueError(f"{len(codes)} code shards for a mesh axis of "
+                             f"{shards}")
+        n = sum(part.shape[1] for part in codes)
+    rows, w = codes[0].shape[1], codes[0].shape[2]
+    if any(part.shape[1] != rows for part in codes):
+        raise ValueError("code shards must hold equal row counts")
+    n_pad = rows * shards
+    n_valid = n if n_valid is None else int(n_valid)
+    l_local = l + min(n_pad - n_valid, rows)
+    local = []
+    for s, part in enumerate(codes):
+        cd, ci = ops.hamming_topk_grouped(part, queries.to(part.device),
+                                          l_local, select=select, pack=pack)
+        # rows past the true table end become sentinels before the gather
+        pad_row = (ci >= 0) & (ci + s * rows >= n_valid)
+        cd = torch.where(pad_row, DIST_SENTINEL, cd)
+        ci = torch.where(pad_row, -1, ci)
+        local.append(_narrow_gather(cd, ci, pack, w, rows))
+    out = queries.device
+    all_d = _gather([c[0] for c in local], out)       # (S, G, B, l_local)
+    all_i = _gather([c[1] for c in local], out)
+    all_d, all_i = _widen_gather(all_d, all_i, local[0][2], local[0][3],
+                                 rows)
+    g, b = queries.shape[0], queries.shape[1]
+    all_d = all_d.permute(1, 2, 0, 3).reshape(g, b, -1)
+    all_i = all_i.permute(1, 2, 0, 3).reshape(g, b, -1)
+    return lex_smallest(all_d, all_i, l)
 
 
 def _segmented_rows(base_x, delta_x, split: int, rows):

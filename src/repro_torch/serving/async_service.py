@@ -36,8 +36,8 @@ compaction folds the delta back without stopping the world.
 The JAX package pads each flushed group to a power-of-two size so that its
 jitted paths see few shapes; PyTorch traces nothing, so the port answers
 each group at its own size.  ``refresh`` triggers the inner service's
-online re-learn and generation swap; the row-sharded scan (``mesh=``) is
-not ported yet.
+online re-learn and generation swap; ``mesh`` / ``shard_axis`` reach
+the inner service's row-sharded scan.
 """
 from __future__ import annotations
 
@@ -173,11 +173,11 @@ class AsyncHashQueryService:
     def __init__(self, index: MultiTableIndex, *, max_batch: int | None = None,
                  deadline_ms: float = 5.0, max_queue: int = 1024,
                  mode: str = "probe", cache_size: int = 1024,
-                 scan_l: int = 16, mesh=None,
+                 scan_l: int = 16, mesh=None, shard_axis: str = "data",
                  clock=time.monotonic, start: bool = True):
         self.service = HashQueryService(
             index, max_batch=max_batch, cache_size=cache_size, mode=mode,
-            scan_l=scan_l, mesh=mesh)
+            scan_l=scan_l, mesh=mesh, shard_axis=shard_axis)
         self.max_batch = self.service.max_batch
         self.deadline_s = float(deadline_ms) * 1e-3
         self._clock = clock

@@ -87,8 +87,9 @@ from repro_torch.kernels import _build, ops
 from repro_torch.serving.faults import FaultError, FaultPlan
 from repro_torch.serving.lsm import (_MIN_CAP, LSMMultiTableIndex,
                                      _pow2_at_least, release)
-from repro_torch.serving.multi_table import _NO_MESH, BatchQueryResult
+from repro_torch.serving.multi_table import BatchQueryResult
 from repro_torch.utils.device import as_float_tensor, resolve_device
+from repro_torch.utils.mesh import shard_count
 
 
 class ShardCallTimeout(RuntimeError):
@@ -567,13 +568,15 @@ class ShardReplicaRouter:
 
     # -- queries -------------------------------------------------------------
 
-    def _scan_covered_shard(self, s: int, w: np.ndarray, l: int,
-                            gids: np.ndarray):
+    def _scan_covered_shard(self, s: int, w: np.ndarray, l: int, mesh,
+                            shard_axis: str, gids: np.ndarray):
         """One shard's scan ladder: per-table (distance, local id) top-l
-        from a healthy replica, mapped to global ids.  Runs on
-        _shard_pool, so the shards scan (and fail over) concurrently."""
+        from a healthy replica (row-sharded over mesh when one is given),
+        mapped to global ids.  Runs on _shard_pool, so the shards scan
+        (and fail over) concurrently."""
         r, (d, ids) = self._shard_ladder(
-            s, "scan", lambda rep: rep.scan_table_topk(w, l))
+            s, "scan", lambda rep: rep.scan_table_topk(
+                w, l, mesh=mesh, shard_axis=shard_axis))
         known = (ids >= 0) & (ids < gids.size)
         g = np.where(known, gids[np.clip(ids, 0, gids.size - 1)], -1)
         # rows newer than this query's snapshot (an insert racing the
@@ -582,14 +585,17 @@ class ShardReplicaRouter:
         return r, d, g
 
     def query_scan_batch(self, w, l: int = 16, topk: int = 1, mask=None,
-                         mesh=None) -> BatchQueryResult:
+                         mesh=None, shard_axis: str = "data"
+                         ) -> BatchQueryResult:
         """Cluster-wide scan answer (the protocol in the module
         docstring).  A replica's timeout or injected fault shrinks
         ``coverage`` instead of raising; any other error raises, and so
         does an error recorded on a replica still out of rotation.
-        ``mask`` is a bool mask over the global stable-id space."""
+        ``mask`` is a bool mask over the global stable-id space.  mesh /
+        shard_axis: each replica's scan runs row-sharded over the mesh
+        (``MultiTableIndex.scan_table_topk``), with the same answers."""
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            shard_count(mesh, shard_axis)
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         t0 = time.perf_counter()
@@ -622,7 +628,7 @@ class ShardReplicaRouter:
                                 hits, 1.0)
         # phase 1: per-shard scans in parallel, each with its ladder
         futs = {s: self._shard_pool.submit(self._scan_covered_shard, s, w, l,
-                                           gids_snap[s])
+                                           mesh, shard_axis, gids_snap[s])
                 for s in range(self.shards) if live[s] > 0}
         scans: dict[int, tuple] = {}
         served: dict[int, int] = {}

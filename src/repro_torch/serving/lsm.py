@@ -44,7 +44,13 @@ snapshots the families together with the device state under one lock
 hold, and ``insert`` re-hashes when a swap landed while it hashed, so no
 answer and no row mixes two generations.
 
-Not ported yet: the row-sharded scan (``mesh=``, ROADMAP queue 1 item 9).
+With ``mesh=`` the base segment's scan runs row-sharded
+(``core.search.hamming_topk_grouped_sharded``) over a layout cached per
+(base version, mesh, axis).  The sharded scan cannot take the liveness
+mask, so it scans ``l + #tombstones`` deep (rounded up to a power of two,
+at most the segment) and ``core.search.drop_tombstones_topk`` keeps the
+live top-l; the small delta stays on one device.  Answers are identical
+to the single-device scan's.
 """
 from __future__ import annotations
 
@@ -56,17 +62,18 @@ import torch
 
 from repro_torch.core import search
 from repro_torch.core.indexer import IndexConfig
-from repro_torch.core.search import (DIST_SENTINEL, margin_batch,
-                                     margin_batch_segmented,
+from repro_torch.core.search import (DIST_SENTINEL, drop_tombstones_topk,
+                                     hamming_topk_grouped_sharded,
+                                     margin_batch, margin_batch_segmented,
                                      margin_rerank_batch,
                                      margin_rerank_segmented,
-                                     merge_topk_segments)
+                                     merge_topk_segments, shard_rows)
 from repro_torch.core.tables import SingleHashTable
 from repro_torch.kernels import ops
 from repro_torch.serving import batch_query as bq
-from repro_torch.serving.multi_table import (_NO_MESH, BatchQueryResult,
-                                             MultiTableIndex)
+from repro_torch.serving.multi_table import BatchQueryResult, MultiTableIndex
 from repro_torch.utils.bits import to_numpy_u32
+from repro_torch.utils.mesh import shard_count
 
 _MIN_CAP = 64   # floor of every power-of-two buffer / device row bucket
 # bucket entries of a retired generation's probe tables freed between two
@@ -577,8 +584,9 @@ class LSMMultiTableIndex(MultiTableIndex):
         self._base_mask_version += 1
         self._delta_version += 1
         self._bcap = int(dev_codes.shape[1])
-        self._base_codes_dev, self._base_codes_key = (dev_codes,
-                                                      self._base_version)
+        # the freshly uploaded single-device layout is current
+        self._base_codes_dev = dev_codes
+        self._base_codes_key = (self._base_version, None)
         self._base_x_dev, self._base_x_key = dev_x, self._base_version
         self.device_uploads += 2
         self.version += 1
@@ -633,9 +641,9 @@ class LSMMultiTableIndex(MultiTableIndex):
             self._base_version += 1
             self._base_mask_version += 1
             self._delta_version += 1
-            if shadow._base_codes_key == shadow._base_version:
+            if shadow._base_codes_key == (shadow._base_version, None):
                 self._base_codes_dev = shadow._base_codes_dev
-                self._base_codes_key = self._base_version
+                self._base_codes_key = (self._base_version, None)
             else:
                 self._base_codes_dev, self._base_codes_key = None, None
             if shadow._base_active_key == (shadow._base_version,
@@ -732,12 +740,18 @@ class LSMMultiTableIndex(MultiTableIndex):
 
     # -- device segment states -----------------------------------------------
 
-    def _base_codes_state(self):
-        # lock held by caller; (L, bcap, W) int32, padding rows zero
-        if self._base_codes_key != self._base_version:
-            self._base_codes_dev = self._padded(
-                self._codes_buf[:, :self._base_len], self._bcap, axis=1)
-            self._base_codes_key = self._base_version
+    def _base_codes_state(self, mesh=None, axis: str = "data"):
+        # lock held by caller.  Keyed by (base version, layout): without a
+        # mesh (L, bcap, W) int32, padding rows zero; with one the
+        # per-shard layout of the base rows (core.search.shard_rows)
+        layout = None if mesh is None else (mesh, axis)
+        key = (self._base_version, layout)
+        if self._base_codes_key != key:
+            base = self._codes_buf[:, :self._base_len]
+            self._base_codes_dev = (
+                self._padded(base, self._bcap, axis=1) if mesh is None
+                else shard_rows(base, mesh, axis))
+            self._base_codes_key = key
             self.scan_state_rebuilds += 1
             self.device_uploads += 1
         return self._base_codes_dev
@@ -859,13 +873,29 @@ class LSMMultiTableIndex(MultiTableIndex):
                                            select=cfg.fused_select,
                                            active=active_dev)
 
-    def _scan_segments(self, w: np.ndarray, l: int):
-        """Hash w and scan both segments; the per-table top-l over the
-        live rows, merged: (snapshot, dists (L, B, l), rows (L, B, l)) with
-        global rows (-1 in empty slots), or None when no row is live.  The
-        geometry and the device handles are snapshotted under one lock
-        hold, so a concurrent compaction swap makes the answer reflect the
-        state wholly before or wholly after it."""
+    def _scan_base_sharded(self, codes, qcodes, l: int, split: int,
+                           dead: int, active_dev, mesh, axis: str):
+        """The base segment's top-l LIVE candidates over a mesh, (L, B, l),
+        lex-sorted, base rows.  The sharded scan masks the padding past
+        ``split`` itself; tombstones take the slack rule: scan l + dead
+        deep (a power of two, at most the segment's), then drop them."""
+        cfg = self.config
+        depth = (l if not dead else min(_pow2_at_least(l + dead),
+                                        _pow2_at_least(split, _MIN_CAP)))
+        d, i = hamming_topk_grouped_sharded(
+            codes, qcodes, depth, mesh, axis, n_valid=split,
+            select=cfg.fused_select, pack=cfg.cand_pack)
+        return drop_tombstones_topk(d, i, active_dev, l) if dead else (d, i)
+
+    def _scan_segments(self, w: np.ndarray, l: int, mesh=None,
+                       axis: str = "data"):
+        """Hash w and scan both segments (the base over ``mesh`` when one
+        is given); the per-table top-l over the live rows, merged:
+        (snapshot, dists (L, B, l), rows (L, B, l)) with global rows (-1
+        in empty slots), or None when no row is live.  The geometry and
+        the device handles are snapshotted under one lock hold, so a
+        concurrent compaction swap makes the answer reflect the state
+        wholly before or wholly after it."""
         with self._lock:
             split, rows = self._base_len, self._rows
             if not self._active_buf[:rows].any():
@@ -873,13 +903,20 @@ class LSMMultiTableIndex(MultiTableIndex):
             snap = dict(split=split, rows=rows, ids=self.ids_np,
                         base_x=self._base_x_state() if split else None,
                         delta_x=None)
-            base = ((self._base_codes_state(), self._base_active_state())
+            # tombstones in the base: only the sharded scan needs them
+            dead = (split - int(self._active_buf[:split].sum())
+                    if split and mesh is not None else 0)
+            base = ((self._base_codes_state(mesh, axis),
+                     self._base_active_state(), dead)
                     if split else None)
             delta = self._delta_state() if rows > split else None
             fams = self.families
         qcodes = bq.hash_queries_all(fams, w)                    # (L, B, W)
         d_m = i_m = None
-        if base is not None:
+        if base is not None and mesh is not None:
+            d_m, i_m = self._scan_base_sharded(base[0], qcodes, l, split,
+                                               base[2], base[1], mesh, axis)
+        elif base is not None:
             d_m, i_m = self._scan_segment(base[0], qcodes, l, base[1], True)
         if delta is not None:
             codes_d, snap["delta_x"], active_d = delta
@@ -893,17 +930,19 @@ class LSMMultiTableIndex(MultiTableIndex):
         return snap, d_m, i_m
 
     def query_scan_batch(self, w, l: int = 16, topk: int = 1, mask=None,
-                         mesh=None) -> BatchQueryResult:
-        """Two-segment fused scan (the parent's l / topk / mask contract):
-        both segments scanned and merged through merge_topk_segments, then
-        the device-side union and the segmented exact re-rank."""
+                         mesh=None, shard_axis: str = "data"
+                         ) -> BatchQueryResult:
+        """Two-segment fused scan (the parent's l / topk / mask / mesh
+        contract): both segments scanned and merged through
+        merge_topk_segments, then the device-side union and the segmented
+        exact re-rank."""
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            shard_count(mesh, shard_axis)
         self._require_fit("query_scan_batch")
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         t0 = time.perf_counter()
-        scanned = self._scan_segments(w, l)
+        scanned = self._scan_segments(w, l, mesh, shard_axis)
         if scanned is None:
             ids_pad = np.full((b, topk), -1, np.int64)
             m_pad = np.full((b, topk), np.inf, np.float32)
@@ -951,17 +990,18 @@ class LSMMultiTableIndex(MultiTableIndex):
             ids_topk=top_ids if topk > 1 else None,
             margins_topk=margins if topk > 1 else None)
 
-    def scan_table_topk(self, w, l: int = 16, mesh=None
+    def scan_table_topk(self, w, l: int = 16, mesh=None,
+                        shard_axis: str = "data"
                         ) -> tuple[np.ndarray, np.ndarray]:
         """The parent's per-table Hamming top-l before the union, in
         stable-id space: both segments merged before translating to ids,
         so each list carries the (distance, id) order of a monolithic
         scan over the live rows."""
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            shard_count(mesh, shard_axis)
         self._require_fit("scan_table_topk")
         w = np.atleast_2d(np.asarray(w, np.float32))
-        scanned = self._scan_segments(w, l)
+        scanned = self._scan_segments(w, l, mesh, shard_axis)
         if scanned is None:
             shape = (self.num_tables, w.shape[0], l)
             return (np.full(shape, DIST_SENTINEL, np.int32),

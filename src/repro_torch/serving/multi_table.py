@@ -14,8 +14,10 @@ and EH drawn from a generator with that seed; LBH learned on the index's
 device, warm-started at the seeded BH factors).  The JAX package derives
 its families from jax.random keys, which torch cannot reproduce; to serve
 a JAX-built index, carry its families and state across with
-``repro_torch.interop``.  The row-sharded scan (``mesh=``) is
-not ported yet.  ``serving.lsm.LSMMultiTableIndex`` overrides the build,
+``repro_torch.interop``.  The scan path also runs row-sharded over a
+``utils.mesh.Mesh`` (``mesh=``, ``core.search.hamming_topk_grouped_sharded``)
+with answers identical to the single-device scan.
+``serving.lsm.LSMMultiTableIndex`` overrides the build,
 mutation, lookup, re-rank and scan methods here for streaming ingest.
 """
 from __future__ import annotations
@@ -27,16 +29,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.indexer import IndexConfig, QueryResult, make_family
-from repro_torch.core.search import (DIST_SENTINEL, margin_batch,
-                                     margin_rerank_batch)
+from repro_torch.core.search import (DIST_SENTINEL,
+                                     hamming_topk_grouped_sharded,
+                                     margin_batch, margin_rerank_batch,
+                                     shard_rows)
 from repro_torch.core.tables import SingleHashTable, keys_of
 from repro_torch.kernels import ops
 from repro_torch.serving import batch_query as bq
 from repro_torch.utils.bits import from_numpy_u32, to_numpy_u32
 from repro_torch.utils.device import resolve_device
-
-_NO_MESH = ("the row-sharded scan (mesh=) is not ported yet "
-            "(ROADMAP, queue 1 item 9)")
+from repro_torch.utils.mesh import shard_count
 
 
 @dataclasses.dataclass
@@ -85,7 +87,10 @@ class MultiTableIndex:
         self.scan_state_rebuilds = 0   # stacked-code scan layouts rebuilt
         self.compaction_steps = 0
         self._x_dev = None
-        self._codes_dev = None        # (L, n_live, W) stacked live codes
+        # stacked live codes (L, n_live, W), or their per-shard layout
+        # over a mesh; _scan_key says which: None or (mesh, axis)
+        self._codes_dev = None
+        self._scan_key = None
         self._live_rows: np.ndarray | None = None
         self._live_rows_dev = None
 
@@ -325,31 +330,47 @@ class MultiTableIndex:
 
     # -- scan path -----------------------------------------------------------
 
-    def _scan_state(self):
-        """Device-resident stacked live codes (L, n_live, W) and the
-        live-row map, rebuilt only after a mutation."""
-        if self._codes_dev is None:
+    def _scan_state(self, mesh=None, axis: str = "data"):
+        """Device-resident live codes for the scan and the live-row map,
+        rebuilt only after a mutation or when the layout changes: the
+        stacked (L, n_live, W) codes on the index's device, or with a mesh
+        their per-shard layout (``core.search.shard_rows``: padded
+        host-side to the shard count, each shard's row range on its
+        device).  The live-row map stays on the index's device."""
+        key = None if mesh is None else (mesh, axis)
+        if self._codes_dev is None or self._scan_key != key:
             self.scan_state_rebuilds += 1
             self.device_uploads += 1
             self._live_rows = np.flatnonzero(self.active)
             stacked = np.stack([c[self._live_rows] for c in self.codes])
-            self._codes_dev = from_numpy_u32(stacked, self.device)
+            self._codes_dev = (from_numpy_u32(stacked, self.device)
+                               if mesh is None
+                               else shard_rows(stacked, mesh, axis))
             self._live_rows_dev = torch.from_numpy(self._live_rows).to(
                 self.device)
+            self._scan_key = key
         return self._codes_dev, self._live_rows_dev
 
-    def _scan(self, w, l: int):
+    def _scan(self, w, l: int, mesh=None, axis: str = "data"):
         """Per-table top-l over the live codes: (dists, live-row idx), each
-        (L, B, l) int32 on the device — one hash launch and one fused scan
-        launch for all L tables."""
-        codes_dev, _ = self._scan_state()
+        (L, B, l) int32 on the index's device: one hash launch, then one
+        fused scan launch for all L tables, or with a mesh one per shard
+        (``core.search.hamming_topk_grouped_sharded``)."""
+        codes_dev, _ = self._scan_state(mesh, axis)
         qcodes = bq.hash_queries_all(self.families, w)
-        return ops.hamming_topk_grouped(codes_dev, qcodes, l,
-                                        select=self.config.fused_select,
-                                        pack=self.config.cand_pack)
+        cfg = self.config
+        if mesh is None:
+            return ops.hamming_topk_grouped(codes_dev, qcodes, l,
+                                            select=cfg.fused_select,
+                                            pack=cfg.cand_pack)
+        return hamming_topk_grouped_sharded(
+            codes_dev, qcodes, l, mesh, axis,
+            n_valid=self._live_rows.shape[0], select=cfg.fused_select,
+            pack=cfg.cand_pack)
 
     def query_scan_batch(self, w, l: int = 16, topk: int = 1, mask=None,
-                         mesh=None) -> BatchQueryResult:
+                         mesh=None, shard_axis: str = "data"
+                         ) -> BatchQueryResult:
         """Device-side batched scan: ONE fused Hamming kernel launch for all
         L tables and B queries, then union/dedup and exact margin re-rank,
         all on the device.
@@ -358,9 +379,14 @@ class MultiTableIndex:
         answers; ids_topk/margins_topk are set when topk > 1 (impossible
         slots: id -1 / margin +inf).  mask: optional bool mask over stable-id
         space restricting answers.  All reported ids are stable ids.
+
+        mesh: a ``utils.mesh.Mesh``; the live codes are then row-sharded
+        over its ``shard_axis`` and each shard runs one scan launch on its
+        device; answers identical to the single-device scan.  The layout
+        is cached per (mesh, axis): reuse the mesh across calls.
         """
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            shard_count(mesh, shard_axis)
         self._require_fit("query_scan_batch")
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
@@ -376,7 +402,7 @@ class MultiTableIndex:
                 np.zeros(self.num_tables, dtype=np.int64),
                 ids_topk=ids_pad if topk > 1 else None,
                 margins_topk=m_pad if topk > 1 else None)
-        _, idx = self._scan(w, l)
+        _, idx = self._scan(w, l, mesh, shard_axis)
         return self.answer_from_scan(w, idx, topk, mask, t0)
 
     def answer_from_scan(self, w, idx: torch.Tensor, topk: int = 1,
@@ -390,7 +416,9 @@ class MultiTableIndex:
             t0 = time.perf_counter()
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
-        _, live_rows_dev = self._scan_state()
+        if self._codes_dev is None:
+            self._scan_state()
+        live_rows_dev = self._live_rows_dev     # any layout's: same rows
         n_live = self._live_rows.shape[0]
         # per query, sort the L·l live-row ids and invalidate repeats and
         # empty (-1) slots
@@ -427,13 +455,15 @@ class MultiTableIndex:
             ids_topk=top if topk > 1 else None,
             margins_topk=margins if topk > 1 else None)
 
-    def scan_table_topk(self, w, l: int = 16, mesh=None
+    def scan_table_topk(self, w, l: int = 16, mesh=None,
+                        shard_axis: str = "data"
                         ) -> tuple[np.ndarray, np.ndarray]:
         """Per-table Hamming top-l surfaced before the merge, in stable-id
         space: host (dists (L, B, l) int32, ids (L, B, l) int64), each list
-        sorted by (distance, stable id) with (DIST_SENTINEL, -1) sentinels."""
+        sorted by (distance, stable id) with (DIST_SENTINEL, -1) sentinels.
+        mesh / shard_axis: the row-sharded scan, as in query_scan_batch."""
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            shard_count(mesh, shard_axis)
         self._require_fit("scan_table_topk")
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
@@ -441,7 +471,7 @@ class MultiTableIndex:
             return (np.full((self.num_tables, b, l), DIST_SENTINEL,
                             np.int32),
                     np.full((self.num_tables, b, l), -1, np.int64))
-        dists, idx = self._scan(w, l)
+        dists, idx = self._scan(w, l, mesh, shard_axis)
         idx_np = idx.cpu().numpy().astype(np.int64)
         n_live = self._live_rows.shape[0]
         grows = self._live_rows[np.clip(idx_np, 0, n_live - 1)]

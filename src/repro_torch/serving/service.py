@@ -14,6 +14,9 @@ Two interchangeable backends (``mode``):
 - ``"scan"`` — the device-resident fused top-k Hamming scan
   (``MultiTableIndex.query_scan_batch``): one hash launch and one scan
   launch for all L tables and the whole micro-batch, no candidate cache.
+  With ``mesh`` (a ``utils.mesh.Mesh``) the index row-shards its live
+  codes over ``shard_axis`` and each micro-batch takes one scan launch
+  per shard, with the same answers.
 
 With ``serving.lsm.LSMMultiTableIndex`` underneath, writes and compaction
 run under live traffic: every answer takes the index's lock
@@ -22,8 +25,6 @@ online refresh (``refresh``, ``serving.refresh.RefreshManager``) re-learns
 the families and swaps the rebuilt index in.  Over a
 ``serving.cluster.ShardReplicaRouter`` scan answers carry ``coverage``
 (counted in ``degraded_batches`` and ``last_coverage``).
-
-The row-sharded scan (``mesh=``) comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -35,9 +36,10 @@ import numpy as np
 
 from repro_torch.core.indexer import QueryResult
 from repro_torch.serving import batch_query as bq
-from repro_torch.serving.multi_table import _NO_MESH, MultiTableIndex
+from repro_torch.serving.multi_table import MultiTableIndex
 from repro_torch.serving.refresh import RefreshManager
 from repro_torch.utils.bits import to_numpy_u32
+from repro_torch.utils.mesh import shard_count
 
 
 class HashQueryService:
@@ -45,14 +47,20 @@ class HashQueryService:
 
     def __init__(self, index: MultiTableIndex, max_batch: int | None = None,
                  cache_size: int = 1024, mode: str = "probe",
-                 scan_l: int = 16, mesh=None):
+                 scan_l: int = 16, mesh=None, shard_axis: str = "data"):
         if mode not in ("probe", "scan"):
             raise ValueError(f"mode must be 'probe' or 'scan', got {mode!r}")
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            shard_count(mesh, shard_axis)
+            if mode != "scan":
+                raise ValueError("mesh requires mode='scan'")
         self.index = index
         self.mode = mode
         self.scan_l = int(scan_l)
+        # scan mode over a mesh: the index row-shards its live codes over
+        # this axis, one scan launch per shard and micro-batch
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self.max_batch = int(max_batch if max_batch is not None
                              else index.config.batch)
         if self.max_batch < 1:
@@ -243,7 +251,9 @@ class HashQueryService:
         """Fused-scan backend: one grouped scan launch per micro-batch."""
         t_start = time.perf_counter()
         b = ws.shape[0]
-        res = self.index.query_scan_batch(ws, l=self.scan_l, mask=mask)
+        res = self.index.query_scan_batch(ws, l=self.scan_l, mask=mask,
+                                          mesh=self.mesh,
+                                          shard_axis=self.shard_axis)
         self._record(b, time.perf_counter() - t_start, res.lookup_s,
                      res.rerank_s)
         self.last_coverage = float(res.coverage)

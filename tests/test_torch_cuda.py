@@ -695,3 +695,67 @@ def test_margins_do_not_depend_on_candidate_position(cuda, d):
     top_m, top_i = margin_rerank_batch(x, w, rows, valid, 37)
     assert torch.equal(top_m, torch.gather(m0, 1, torch.argsort(
         m0, dim=1, stable=True)))
+
+
+@pytest.mark.parametrize("pack", ["none", "16", "8"])
+@pytest.mark.parametrize("select", ["hist", "argmin"])
+@pytest.mark.parametrize("shards", [2, 3])
+def test_grouped_sharded_scan_on_card(cuda, shards, select, pack):
+    """The row-sharded scan with S shards co-located on the card equals
+    its plain version (the same mesh on the CPU) bit for bit, ragged
+    shards, l > a shard's rows and ties included, with one kernel launch
+    per shard."""
+    from repro_torch.core.search import hamming_topk_grouped_sharded
+    from repro_torch.utils.mesh import make_mesh
+    rng = np.random.default_rng(shards)
+    for n, l in ((70_001, 40), (1001, 600)):
+        codes = rng.integers(0, 2**32, (2, n, 1), dtype=np.uint32)
+        codes[:, ::3] = codes[:, :1]            # ties across shard ends
+        qs = rng.integers(0, 2**32, (2, 5, 1), dtype=np.uint32)
+        c_cpu = torch.from_numpy(codes.view(np.int32))
+        q_cpu = torch.from_numpy(qs.view(np.int32))
+        want = hamming_topk_grouped_sharded(
+            c_cpu, q_cpu, l, make_mesh((shards,), ("data",),
+                                       devices=["cpu"] * shards),
+            select=select, pack=pack)
+        kern = hamming_topk_hist if select == "hist" else hamming_topk_fused
+        before = kern.launches
+        got = hamming_topk_grouped_sharded(
+            c_cpu.to(cuda), q_cpu.to(cuda), l,
+            make_mesh((shards,), ("data",), devices=["cuda:0"] * shards),
+            select=select, pack=pack)
+        torch.cuda.synchronize()
+        assert kern.launches == before + shards
+        assert got[0].device.type == "cuda"
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_index_mesh_scan_on_card(cuda):
+    """MultiTableIndex and the LSM index (base tombstones: the overscan)
+    answer a co-located card mesh exactly as without one."""
+    from repro_torch.serving.lsm import LSMMultiTableIndex
+    from repro_torch.utils.mesh import make_mesh
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(30_001, 64)).astype(np.float32)
+    ws = rng.normal(size=(32, 64)).astype(np.float32)
+    cfg = IndexConfig(method="bh", bits=20, tables=4, lsm_auto=False)
+    for shards in (2, 3):
+        mesh = make_mesh((shards,), ("data",), devices=["cuda:0"] * shards)
+        for cls in (MultiTableIndex, LSMMultiTableIndex):
+            idx = cls(cfg, device=cuda).fit(x)
+            if cls is LSMMultiTableIndex:
+                idx.delete(rng.choice(30_001, 3_000, replace=False))
+                idx.insert(x[:5_000] + 0.01)
+            b = idx.query_scan_batch(ws, l=128, topk=4)
+            before = hamming_topk_hist.launches
+            a = idx.query_scan_batch(ws, l=128, topk=4, mesh=mesh)
+            torch.cuda.synchronize()
+            # one launch per shard, plus the delta's own scan
+            assert hamming_topk_hist.launches - before == shards + (
+                cls is LSMMultiTableIndex)
+            assert np.array_equal(a.ids_topk, b.ids_topk)
+            assert np.array_equal(a.margins_topk, b.margins_topk)
+            assert np.array_equal(a.table_hits, b.table_hits)
+            for ca, cb in zip(a.candidates, b.candidates):
+                assert np.array_equal(ca, cb)

@@ -33,6 +33,7 @@ from repro_torch.serving.lsm import LSMMultiTableIndex  # noqa: E402
 from repro_torch.serving.multi_table import MultiTableIndex  # noqa: E402
 from repro_torch.serving.service import HashQueryService  # noqa: E402
 from repro_torch.utils.bits import from_numpy_u32  # noqa: E402
+from repro_torch.utils.mesh import make_mesh  # noqa: E402
 
 D = 24
 # small thresholds so short streams cross real compaction cycles
@@ -285,10 +286,22 @@ def test_empty_index_and_unported_paths(corpus, queries):
     dl, il = lsm.scan_table_topk(queries, l=4)
     df, i_f = mono.scan_table_topk(queries, l=4)
     assert np.array_equal(dl, df) and np.array_equal(il, i_f + 50)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a co-located CPU mesh answers like no mesh; a non-mesh raises
+    mesh = make_mesh((3,), ("data",), devices=["cpu"] * 3)
+    lsm.delete(lsm.ids_np[[1, 4]])       # a tombstone in the delta
+    lsm.compact()                        # the delta folds into the base
+    lsm.insert(corpus.x[60:70])
+    lsm.delete(lsm.ids_np[[0, 2]])       # base tombstones: the overscan
+    _assert_scan_equal(lsm.query_scan_batch(queries, l=4, topk=3, mesh=mesh),
+                       lsm.query_scan_batch(queries, l=4, topk=3))
+    dm, im = lsm.scan_table_topk(queries, l=4, mesh=mesh)
+    dn, i_n = lsm.scan_table_topk(queries, l=4)
+    assert np.array_equal(dm, dn) and np.array_equal(im, i_n)
+    with pytest.raises(TypeError, match="mesh"):
         lsm.query_scan_batch(queries[:3], mesh=object())
+    n_live = lsm.n
     assert HashQueryService(lsm).refresh()   # the refresh is ported
-    assert lsm.generation == 1 and lsm.n == 10
+    assert lsm.generation == 1 and lsm.n == n_live
 
 
 def test_background_compactor_under_live_queries(corpus, queries):

@@ -31,6 +31,7 @@ from repro_torch.kernels.ref import sign_flip_ratios  # noqa: E402
 from repro_torch.serving import batch_query as tbq  # noqa: E402
 from repro_torch.serving.service import HashQueryService as TService  # noqa: E402,E501
 from repro_torch.utils.bits import from_numpy_u32, to_numpy_u32  # noqa: E402
+from repro_torch.utils.mesh import make_mesh  # noqa: E402
 
 SCAN_L = 64
 CFG = dict(method="bh", bits=20, tables=4, batch=16, radius=3)
@@ -270,6 +271,14 @@ def test_service_writes_and_cache_invalidation(corpus, queries):
     assert st["index_version"] == tsvc.index.version == 3
 
 
+def _assert_scan_same(a, b):
+    assert np.array_equal(a.ids_topk, b.ids_topk)
+    assert np.array_equal(a.margins_topk, b.margins_topk)
+    assert np.array_equal(a.table_hits, b.table_hits)
+    for ca, cb in zip(a.candidates, b.candidates):
+        assert np.array_equal(ca, cb)
+
+
 def test_empty_index_and_pre_fit_errors(corpus, queries):
     cfg = TConfig(**CFG)
     from repro_torch.serving.multi_table import MultiTableIndex
@@ -280,10 +289,23 @@ def test_empty_index_and_pre_fit_errors(corpus, queries):
     idx.delete(np.arange(50))          # every row dead (auto-compacts)
     res = idx.query_scan_batch(queries[:3], topk=4)
     assert (res.ids == -1).all() and res.ids_topk.shape == (3, 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a co-located CPU mesh answers like no mesh; a non-mesh raises
+    mesh = make_mesh((2,), ("data",), devices=["cpu", "cpu"])
+    res_m = idx.query_scan_batch(queries[:3], topk=4, mesh=mesh)
+    assert np.array_equal(res_m.ids_topk, res.ids_topk)
+    assert np.array_equal(res_m.margins_topk, res.margins_topk)
+    with pytest.raises(TypeError, match="mesh"):
         idx.query_scan_batch(queries[:3], mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TService(idx, mode="scan", mesh=object())
+    live = idx.insert(corpus.x[:40])
+    want = idx.query_scan_batch(queries, l=8, topk=3)
+    got = TService(idx, mode="scan", scan_l=8, mesh=mesh).query_batch(
+        queries)
+    assert [r.index for r in got] == want.ids.tolist()
+    _assert_scan_same(idx.query_scan_batch(queries, l=8, topk=3, mesh=mesh),
+                      want)
+    assert np.isin(want.ids, live).all()
 
 
 @pytest.mark.parametrize("overrides,raises", [
