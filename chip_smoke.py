@@ -63,9 +63,26 @@ with 40,000 base tombstones and 5,000 delta rows before and after a
 fold, and the cluster path's router, each against the same object
 without a mesh, bit for bit, with S scan launches per micro-batch.
 
+Then the LM side at full width and depth (qwen3-1.7b: 28 layers,
+d_model 2,048, 1.72 B parameters, bf16 weights from ``--seed``):
+
+- LM serving: ``Engine.generate`` on 8 random prompts of 128 tokens, 32
+  greedy tokens, twice (first-call and steady seconds, prefill ms, decode
+  ms per step, tokens/s, weight and peak memory); gated in float32 (the
+  decode step against teacher-forced logits, full depth, < 3e-3; the
+  card against the CPU at 2 layers, < 1e-4), with bf16 against fp32
+  greedy agreement reported;
+- activation index (``examples/al_data_curation.py`` at full width):
+  ``ActivationIndexer`` embeds 8,192 sequences of 128 tokens through the
+  bf16 model, a seeded BH index (kernel 1) and an LBH index (kernels 8
+  and 4) over the 2,048-wide activations answer 32 SVM probe normals
+  through ``query_scan`` (kernel 2) and ``query``, each answer's margin
+  held to the exhaustive minimum and the codes to the plain versions.
+
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after; the kernels' JSON reports kernels 1, 2 and 5 with
-the sharded path's launches.  Every phase that fails stops the run with a
+and read just after; the kernels' JSON reports kernels 1, 2, 4 and 8 with
+the activation index path's launches, 5 with the sharded path's and 3, 6
+and 7 with the kernel layer's.  Every phase that fails stops the run with a
 non-zero exit.  The second-to-last line of its output is the kernels' JSON
 record, the last ``{"ok": true, "device": {...}}``.
 
@@ -103,6 +120,16 @@ SOAK_BATCHES = 64
 # the sharded phase: rows inserted into the LSM index's delta (past
 # lsm_delta_fused_rows, so the delta scans on the kernel route)
 SHARD_INSERTS = 5_000
+# the LM serving path (qwen3-1.7b at full width and depth): batch,
+# prompt and generated tokens; the fp32 gates' sequence (prefilled half
+# way), and the depth and length of the card-vs-CPU gate
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
+GATE_S, CUT_LAYERS, CUT_S = 128, 2, 32
+# the activation index path: sequences, their length, the embedding
+# batch, probe normals and their labelled subsets, the scan's l
+ACT_N, ACT_S, ACT_BATCH = 8192, 128, 64
+ACT_PROBES, ACT_LABELLED, ACT_SCAN_L = 32, 64, 256
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
 # cores; popcount issues 16 results per clock per SM (CUDA programming
 # guide, compute capability 9.0), at the card's maximum SM clock.
@@ -462,6 +489,442 @@ def sharded_phase(args, index, lsm, router, ws, wq, x_extra, deletes,
     print(f"launches on the sharded path (index and service runs): "
           f"{shard_launches}")
     return shard_launches
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| over two tensors (on any devices)."""
+    got = got.float().cpu()
+    want = want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def lm_phase(args, cfg, dev):
+    """The LM serving path at cfg's full width and depth: bf16 weights
+    from ``--seed``, ``Engine.generate`` twice on LM_BATCH random prompts
+    (greedy), then the per-step times; the fp32 gates (decode against
+    teacher-forced forward at full depth; card against CPU at CUT_LAYERS
+    layers), the bf16 gate (card against CPU at CUT_LAYERS layers, bounded
+    by bf16's own distance from fp32) and bf16 against fp32 greedy
+    agreement.  Sizes are the module's constants.  Returns the bf16 model
+    and its stats."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import (Transformer, decode_step, forward,
+                                    init_params, model_spec)
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve.engine import Engine
+    batch, prompt, gen = LM_BATCH, LM_PROMPT, LM_GEN
+    gate_s, cut_layers, cut_s = GATE_S, CUT_LAYERS, CUT_S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    tree = init_params(model_spec(cfg), torch.bfloat16, generator=g,
+                       device=dev)
+    model = Transformer(cfg, tree)
+    _sync(torch, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 2**30
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}: {n_params} parameters, {weight_gib:.3f} "
+          f"GiB in bf16, initialised in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            device=dev)
+    engine = Engine(cfg, model, max_len=prompt + gen, device=dev)
+    stats = {}
+    outs = []
+    for label in ("first", "steady"):
+        t0 = time.perf_counter()
+        outs.append(engine.generate(prompts, gen))
+        _sync(torch, dev)
+        stats[f"{label}_s"] = time.perf_counter() - t0
+    out = outs[1]
+    check(tuple(out.shape) == (batch, gen) and torch.equal(outs[0], out),
+          "greedy generation has its shape and repeats itself")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated tokens lie in the vocabulary")
+    stats["tokens_per_s"] = batch * gen / stats["steady_s"]
+
+    # the same loop, each step timed alone (host clock around a step
+    # that ends in a synchronise)
+    with torch.inference_mode():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        last, caches = engine.prefill_step(model, {"tokens": prompts})
+        nxt = torch.argmax(last, dim=-1)
+        _sync(torch, dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        check(last.dtype == torch.bfloat16
+              and all(c[kv].dtype == torch.bfloat16 for c in caches
+                      for kv in ("k", "v")),
+              "bf16 weights give bf16 logits and KV caches")
+        steps, step_ms = [nxt], []
+        for i in range(gen - 1):
+            t0 = time.perf_counter()
+            nxt, caches = engine.serve_step(model, caches, nxt, prompt + i)
+            _sync(torch, dev)
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            steps.append(nxt)
+    check(torch.equal(torch.stack(steps, 1), out),
+          "the timed steps produce generate's tokens")
+    if cuda:
+        # where a step's time goes: the device's own work against the
+        # host clock (the last slot rewritten, same shapes)
+        for label, fn, wall in (
+                ("decode step", lambda: engine.serve_step(
+                    model, caches, nxt, prompt + gen - 1),
+                 float(np.quantile(step_ms, 0.5))),
+                ("prefill", lambda: engine.prefill_step(
+                    model, {"tokens": prompts}), prefill_ms)):
+            busy, prof = device_profile(torch, fn)
+            top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]
+            stats[f"{label.split()[0]}_device_ms"] = busy
+            stats[f"{label.split()[0]}_kernels"] = sum(
+                k for _, k in prof.values())
+            print(f"{label} under torch.profiler: device busy {busy:.3f} "
+                  f"ms of {wall:.3f} ms (idle share "
+                  f"{1 - busy / wall:.3f}), "
+                  f"{stats[label.split()[0] + '_kernels']} kernel launches; "
+                  f"largest: " + json.dumps(
+                      {k[:60]: round(v[0], 4) for k, v in top}))
+    del caches
+    stats.update(prefill_ms=prefill_ms,
+                 decode_p50_ms=float(np.quantile(step_ms, 0.5)),
+                 decode_p95_ms=float(np.quantile(step_ms, 0.95)),
+                 weight_gib=weight_gib)
+    if cuda:
+        stats["peak_serving_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"Engine.generate (B {batch}, prompt {prompt}, {gen} greedy "
+          f"tokens, max_len {prompt + gen}): first call "
+          f"{stats['first_s']:.3f} s, steady {stats['steady_s']:.3f} s = "
+          f"{stats['tokens_per_s']:.1f} generated tokens/s; prefill "
+          f"{prefill_ms:.3f} ms; decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms, p95 "
+          f"{stats['decode_p95_ms']:.3f} ms ({gen - 1} steps); weights "
+          f"{weight_gib:.3f} GiB; peak device "
+          f"{stats.get('peak_serving_gib', float('nan')):.3f} GiB")
+
+    # gate: decode step against teacher-forced logits, fp32, full depth
+    model32 = Transformer(cfg, tree, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (2, gate_s), generator=g,
+                        device=dev)
+    half = gate_s // 2
+    with strict_fp32(), torch.inference_mode():
+        _, caches, _ = forward(cfg, model32, {"tokens": tok[:, :half]},
+                               mode="prefill", cache_len=gate_s)
+        dec, _ = decode_step(cfg, model32, tok[:, half], caches, half)
+        full, _, _ = forward(cfg, model32, {"tokens": tok})
+    err_dec = rel_err(dec, full[:, half])
+    del caches, full, dec
+    print(f"fp32 gate, full depth (B 2, S {gate_s}, prefill {half}): decode "
+          f"step vs teacher-forced logits at position {half}: relative "
+          f"error {err_dec}")
+    check(err_dec < 3e-3, "decode matches forward within 3e-3 (fp32)")
+
+    # gates: card against CPU at the cut depth, fp32 and bf16
+    cut = dataclasses.replace(cfg, num_layers=cut_layers)
+    tree_cut = dict(tree, body=tree_map(lambda t: t[:cut_layers],
+                                        tree["body"]))
+    tok = tok[:, :cut_s]
+    logits = {}
+    with strict_fp32(), torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            for where, t in ((dev, tok), (torch.device("cpu"), tok.cpu())):
+                logits[dt, where.type] = forward(
+                    cut, Transformer(cut, tree_cut, dtype=dt, device=where),
+                    {"tokens": t})[0]
+    f32, b16 = torch.float32, torch.bfloat16
+    err_cpu = rel_err(logits[f32, dev.type], logits[f32, "cpu"])
+    print(f"fp32 gate, {cut_layers} layers (B 2, S {cut_s}): {dev} vs CPU "
+          f"forward logits: relative error {err_cpu}")
+    check(err_cpu < 1e-4, f"{dev} forward matches the CPU within 1e-4")
+    # the CPU's bf16 forward is held to the JAX package's bf16 forward by
+    # tests/test_torch_models.py; the card's must stay nearer to it than
+    # bf16 itself is to fp32 (the lower-precision control)
+    err16_cpu = rel_err(logits[b16, dev.type], logits[b16, "cpu"])
+    ctl16 = rel_err(logits[b16, "cpu"], logits[f32, "cpu"])
+    err16_32 = rel_err(logits[b16, dev.type], logits[f32, dev.type])
+    print(f"bf16 gate, {cut_layers} layers (B 2, S {cut_s}): {dev} vs CPU "
+          f"bf16 forward logits: relative error {err16_cpu}; control, CPU "
+          f"bf16 vs fp32: {ctl16}; {dev} bf16 vs fp32: {err16_32}")
+    check(all(v.dtype == k[0] for k, v in logits.items()),
+          "each forward's logits come in its weights' dtype")
+    check(err16_cpu <= ctl16, f"{dev} bf16 forward is nearer the CPU's bf16 "
+          f"forward than bf16 is to fp32")
+    del logits
+
+    # report: bf16 against fp32 greedy tokens on the same prompts
+    out32 = Engine(cfg, model32, max_len=prompt + gen,
+                   device=dev).generate(prompts, gen)
+    same = (out32 == out).float().mean().item()
+    first_diff = [int(np.flatnonzero(r)[0]) if r.any() else None
+                  for r in (out32 != out).cpu().numpy()]
+    stats.update(bf16_fp32_agreement=same, err_decode=err_dec,
+                 err_cpu=err_cpu, err16_cpu=err16_cpu, bf16_control=ctl16,
+                 err16_fp32=err16_32)
+    if cuda:
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"bf16 vs fp32 greedy tokens: {same:.4f} of {batch * gen} agree; "
+          f"first differing step per row {first_diff}; peak device "
+          f"{stats.get('peak_gib', float('nan')):.3f} GiB (with the fp32 "
+          f"copy)")
+    del model32, out32
+    if cuda:
+        torch.cuda.empty_cache()
+    return model, stats
+
+
+def activation_phase(args, cfg, model, dev, zero_counts, read_counts,
+                     records):
+    """The activation index path (``examples/al_data_curation.py`` at full
+    width): ACT_N sequences of ACT_S tokens from two token-range domains
+    embedded through the bf16 model by ``ActivationIndexer``, a seeded BH
+    index (kernel 1) and an LBH index (kernels 8 and 4) over the
+    activations, each queried with SVM probe normals through
+    ``query_scan`` (kernel 2) and ``query``.  Afterwards, uncounted, kernel
+    2 at this path's shapes and every ``query_scan`` answer against the
+    plain route (records["hamming_topk_hist"]["max_abs_err"] takes the
+    largest difference), the codes against the plain hashes.  Sizes are
+    the module's constants.  Returns (launches, stats)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.core.indexer import (ActivationIndexer, HyperplaneIndex,
+                                          IndexConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bilinear_hash import (
+        bilinear_hash, bilinear_hash_plain, bilinear_hash_seeded_plain)
+    from repro_torch.kernels.hamming import (hamming_topk_hist,
+                                             hamming_topk_hist_plain)
+    from repro_torch.kernels.ref import sign_flip_ratios
+    from repro_torch.models import forward
+    from repro_torch.svm.linear_svm import train_svm
+    n, s, batch, probes = ACT_N, ACT_S, ACT_BATCH, ACT_PROBES
+    labelled, scan_l = ACT_LABELLED, ACT_SCAN_L
+    lbh_sample, lbh_steps = LBH_SAMPLE, LBH_STEPS
+    pick_l = 32
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(args.seed + 20)
+    domain = rng.integers(0, 2, n)
+    lo = np.where(domain == 0, 0, cfg.vocab_size // 2)
+    corpus = torch.from_numpy(rng.integers(0, cfg.vocab_size // 2, (n, s))
+                              + lo[:, None]).to(dev)
+
+    @torch.inference_mode()
+    def embed(tokens):
+        _, _, aux = forward(cfg, model, {"tokens": tokens},
+                            return_logits=False)
+        return aux["normed"].float().mean(dim=1)
+
+    stats = {}
+    zero_counts()
+    ai = ActivationIndexer(embed, IndexConfig(method="bh", bits=BITS,
+                                              radius=RADIUS),
+                           batch_size=batch, device=dev)
+    idx_bh = ai.build(corpus)
+    emb = ai.embeddings
+    d = emb.shape[1]
+    stats.update(embed_s=ai.embed_s, seq_per_s=n / ai.embed_s,
+                 tok_per_s=n * s / ai.embed_s, bh_fit_s=idx_bh.fit_s)
+    print(f"ActivationIndexer: {n} sequences x {s} tokens through the bf16 "
+          f"{cfg.name} (batches of {batch}) in {ai.embed_s:.3f} s = "
+          f"{stats['seq_per_s']:.1f} sequences/s, {stats['tok_per_s']:.0f} "
+          f"tokens/s; embeddings {tuple(emb.shape)} float32; seeded BH "
+          f"fit {idx_bh.fit_s:.3f} s")
+    check(bool(torch.isfinite(emb).all()), "the activations are finite")
+    if cuda:
+        wall = 1e3 * ai.embed_s * batch / n
+        busy, prof = device_profile(torch, lambda: embed(corpus[:batch]))
+        top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]
+        stats["embed_batch_device_ms"] = busy
+        print(f"one embedding batch ({batch} x {s}) under torch.profiler: "
+              f"device busy {busy:.3f} ms of {wall:.3f} ms per batch (idle "
+              f"share {1 - busy / wall:.3f}); largest: " + json.dumps(
+                  {k[:60]: round(v[0], 4) for k, v in top}))
+    lcfg = IndexConfig(method="lbh", bits=BITS, radius=RADIUS,
+                       lbh_sample=lbh_sample, lbh_steps=lbh_steps)
+    idx_lbh = HyperplaneIndex(lcfg, device=dev).fit(emb)
+    stats["lbh_fit_s"] = idx_lbh.fit_s
+    print(f"LBH fit over the activations (sample {lbh_sample}, {lbh_steps} "
+          f"steps x {BITS} bits): {idx_lbh.fit_s:.3f} s")
+
+    # probe normals: SVMs on random labelled subsets, domain labels
+    y = torch.from_numpy(np.where(domain == 0, -1.0, 1.0).astype(
+        np.float32)).to(dev)
+    normals = []
+    for _ in range(probes):
+        mask = torch.zeros(n, device=dev)
+        mask[torch.from_numpy(rng.choice(n, labelled, replace=False)).to(
+            dev)] = 1
+        normals.append(train_svm(torch.zeros(d, device=dev), emb, y, mask,
+                                 steps=200, lr=0.5))
+    w_all = torch.stack(normals)
+    norms = torch.linalg.vector_norm(w_all, dim=1)
+    with strict_fp32():
+        exact = (emb @ w_all.T).abs() / norms              # (n, probes)
+    m_min = exact.min(dim=0).values
+    scale = (d + 8) * 2.0 ** -23
+    answers = {}
+    for name, idx in (("bh", idx_bh), ("lbh", idx_lbh)):
+        scans, scan_ms = [], []
+        answers[name] = scans
+        for w in w_all:
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            scans.append(idx.query_scan(w, scan_l))
+            scan_ms.append(1e3 * (time.perf_counter() - t0))
+        looked = [idx.query(w) for w in w_all]
+        ranks = []
+        for j, ((i_k, m_k), res) in enumerate(zip(scans, looked)):
+            for i_a, m_a in ((i_k, m_k), (res.index, res.margin)):
+                if i_a < 0:
+                    continue
+                tol = scale * (emb[i_a] * w_all[j]).abs().sum().item() * 2 \
+                    / norms[j].item()
+                check(m_a >= m_min[j].item() - tol,
+                      f"{name}: every answer's margin >= the exhaustive "
+                      f"minimum")
+            ranks.append(int((exact[:, j] < exact[i_k, j]).sum()) + 1)
+        recall = float(np.mean([r == 1 for r in ranks]))
+        stats[name] = dict(scan_p50_ms=float(np.quantile(scan_ms, 0.5)),
+                           recall_at_1=recall,
+                           mean_rank=float(np.mean(ranks)),
+                           nonempty=sum(r.nonempty for r in looked))
+        print(f"{name} index, {probes} probe normals: query_scan (l "
+              f"{scan_l}) p50 {stats[name]['scan_p50_ms']:.3f} ms; "
+              f"recall@1 {recall} against the exhaustive answer, mean rank "
+              f"{stats[name]['mean_rank']} of {n}; probe lookups nonempty "
+              f"{stats[name]['nonempty']} of {probes}; mean margin scan "
+              f"{np.mean([m for _, m in scans])}, exhaustive "
+              f"{m_min.mean().item()}")
+
+    # the example's curation: one probe on 24 labelled, 8 picks through
+    # the LBH index's scan, each pick then pushed out of reach
+    mask = torch.zeros(n, device=dev)
+    mask[torch.from_numpy(rng.choice(n, 24, replace=False)).to(dev)] = 1
+    w = train_svm(torch.zeros(d, device=dev), emb, y, mask, steps=200,
+                  lr=0.5)
+    with strict_fp32():
+        pool = ((emb @ w).abs() / torch.linalg.vector_norm(w)).mean().item()
+    idx_lbh.x = emb.clone()
+    picks = []
+    for _ in range(8):
+        i, m = idx_lbh.query_scan(w, pick_l)
+        picks.append((i, m))
+        idx_lbh.x[i] = 1e3
+    idx_lbh.x = emb
+    _sync(torch, dev)
+    launches = read_counts()
+    stats["pick_margin_mean"] = float(np.mean([m for _, m in picks]))
+    stats["pool_margin_mean"] = pool
+    print("curation picks (idx, margin): "
+          + str([(i, round(m, 5)) for i, m in picks])
+          + f"; mean margin {stats['pick_margin_mean']} vs pool mean {pool}")
+    print(f"launches on the activation index path: {launches}")
+    for kern in ("bilinear_hash_seeded", "hamming_topk_hist",
+                 "bilinear_hash", "lbh_chain"):
+        check(not cuda or launches[kern] > 0,
+              f"{kern} launched on the activation index path")
+
+    # kernel 2 at this path's shapes against its plain version (not
+    # counted): for each probe's query code, the per-block select and the
+    # merged top-l at l = scan_l, and query_scan's (id, margin) against the
+    # plain route's (plain scan, then the same re-rank), bit for bit; then
+    # the curation normal at l = pick_l, its 8 picks replayed
+    def plain_route(idx, x, w, l):
+        qcode = idx.family.hash_query(w[None, :])[0]
+        _, ids = search.hamming_topk(idx.codes, qcode, l)
+        margins, ids = search.margin_rerank(x, w, ids[:min(l, n)], 1)
+        return int(ids[0]), float(margins[0])
+
+    bn = ops._block_rows(n, 4096)
+    k2_err = 0
+
+    def k2_case(label, idx, w, l):
+        nonlocal k2_err
+        qcode = idx.family.hash_query(w[None, :])[0]
+        pack = search.env_cand_pack(idx.config.cand_pack)
+        args2 = (idx.codes[None], qcode[None, None], min(l, bn), bn, None,
+                 pack)
+        pairs = list(zip(hamming_topk_hist(*args2),
+                         hamming_topk_hist_plain(*args2)))
+        pairs += list(zip(ops.hamming_topk(idx.codes, qcode, l, pack=pack),
+                          search.hamming_topk(idx.codes, qcode, l)))
+        for a, b in pairs:
+            k2_err = max(k2_err, int((a.long() - b.long()).abs().max()))
+            check(torch.equal(a, b), f"{label}: kernel 2 (n {n}, l {l}, "
+                  f"block_n {bn}) equals its plain version")
+
+    for name, idx in (("bh", idx_bh), ("lbh", idx_lbh)):
+        for j, w_j in enumerate(w_all):
+            k2_case(f"{name} probe {j}", idx, w_j, scan_l)
+            check(answers[name][j] == plain_route(idx, emb, w_j, scan_l),
+                  f"{name} probe {j}: query_scan's (id, margin) equals the "
+                  f"plain route's")
+    k2_case("curation normal", idx_lbh, w, pick_l)
+    x_pick = emb.clone()
+    for k, (i, m) in enumerate(picks):
+        check((i, m) == plain_route(idx_lbh, x_pick, w, pick_l),
+              f"curation pick {k}: (id, margin) equals the plain route's")
+        x_pick[i] = 1e3
+    del x_pick
+    rec = records["hamming_topk_hist"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], k2_err)
+    print(f"kernel 2 at the activation path's shapes (G = B = 1, n {n}, "
+          f"block_n {bn}, l {scan_l} x {2 * probes} query codes, l {pick_l} "
+          f"x 1): block output and merged top-l identical to the plain "
+          f"versions; all {2 * probes} query_scan answers and {len(picks)} "
+          f"picks identical to the plain route's")
+
+    # codes from the card kernels against the plain versions (not counted)
+    fam = idx_bh.family
+    r_bh = sign_flip_ratios(emb, [(fam.u, fam.v)], idx_bh.codes[None],
+                            bilinear_hash_seeded_plain(emb, [fam.seed],
+                                                       BITS))
+    lf = idx_lbh.family
+    r_lbh = sign_flip_ratios(emb, [(lf.u, lf.v)], idx_lbh.codes[None],
+                             bilinear_hash_plain(emb, lf.u, lf.v)[None])
+    print(f"codes vs the plain versions at d = {d}: seeded BH "
+          f"{r_bh.numel()} of {n * BITS} bits differ, LBH {r_lbh.numel()}")
+    check(bool((r_bh <= 1.0).all()) and bool((r_lbh <= 1.0).all()),
+          "every differing activation-code bit lies within the near-zero "
+          "bound")
+    if cuda:
+        k4_ms = cuda_ms(torch, lambda: bilinear_hash(emb, lf.u, lf.v), 20)
+        k4_plain_ms = cuda_ms(
+            torch, lambda: bilinear_hash_plain(emb, lf.u, lf.v), 10)
+        k4_lib_ms = cuda_ms(torch, lambda: library_hash(emb, [(lf.u, lf.v)]),
+                            10)
+        k4_dev_ms = profiled_ms(torch, lambda: bilinear_hash(emb, lf.u, lf.v),
+                                5, "bilinear_hash_kernel")
+        t_bytes = (n * d * 4 + 2 * d * BITS * 4 + n * 4) / HBM_BYTES_S
+        t_ops = 4 * n * d * BITS / FP32_FLOP_S
+        k4_bound = 1e3 * max(t_bytes, t_ops)
+        stats["k4"] = dict(ms=k4_ms, device_ms=k4_dev_ms,
+                           plain_ms=k4_plain_ms, library_ms=k4_lib_ms,
+                           bound_ms=k4_bound,
+                           bound_by="operations" if t_ops > t_bytes
+                           else "bytes")
+        print(f"kernel 4 at the activation shape ({n} x {d}, k {BITS}): "
+              f"{k4_ms} ms (CUDA events), device "
+              f"{'not measured' if k4_dev_ms is None else k4_dev_ms} ms "
+              f"(torch.profiler), plain {k4_plain_ms} ms, library route "
+              f"{k4_lib_ms} ms, bound {k4_bound} ms "
+              f"({stats['k4']['bound_by']})")
+    return launches, stats
 
 
 def main() -> int:
@@ -2184,17 +2647,34 @@ def main() -> int:
     del index, lsm, router
     torch.cuda.empty_cache()
 
-    # -- 19. times ----------------------------------------------------------
-    phase("19 times")
+    # -- 19. the LM serving path: qwen3-1.7b at full width and depth -------
+    phase("19 LM serving path")
+    from repro_torch.configs.registry import get_arch
+    lm_cfg = get_arch(LM_ARCH)
+    model, lm_stats = lm_phase(args, lm_cfg, dev)
+
+    # -- 20. the activation index path over the LM's activations ----------
+    phase("20 activation index path")
+    torch.cuda.reset_peak_memory_stats()
+    act_launches, act_stats = activation_phase(args, lm_cfg, model, dev,
+                                               zero_counts, read_counts,
+                                               records)
+    print(f"peak device memory in phase 20 "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print("LM and activation path stats: " + json.dumps(
+        {"lm": lm_stats, "activation": act_stats}))
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 21. times ----------------------------------------------------------
+    phase("21 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []
     for name, rec in records.items():
-        path = (shard_launches if name in ("bilinear_hash_seeded",
-                                           "hamming_topk_hist",
-                                           "hamming_topk_fused")
+        path = (shard_launches if name == "hamming_topk_fused"
                 else layer_launches if name in layer
-                else lbh_launches)
+                else act_launches)
         rec["launches"] = path[name]
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,9 +1,7 @@
 """High-level index API: the index configuration, the per-query result,
-the hash family a table is built with (``make_family``) and the
-single-table ``HyperplaneIndex``.
-
-The JAX package's ``ActivationIndexer`` (an LM backbone as the feature
-extractor) comes with the LM scaffolding, last in the port's order.
+the hash family a table is built with (``make_family``), the
+single-table ``HyperplaneIndex`` and the ``ActivationIndexer`` (an LM
+backbone as the feature extractor).
 """
 from __future__ import annotations
 
@@ -224,3 +222,45 @@ class HyperplaneIndex:
         margins, ids = margin_rerank(self.x, w,
                                      idx[:min(l, self.codes.shape[0])], 1)
         return int(ids[0]), float(margins[0])
+
+
+# ---------------------------------------------------------------------------
+# Activation indexer: the paper's AL pipeline with an LM as feature extractor
+# ---------------------------------------------------------------------------
+
+class ActivationIndexer:
+    """Builds a HyperplaneIndex over pooled backbone activations.
+
+    embed_fn(batch) -> (B, d) pooled embeddings (e.g. the mean of the final
+    normed hidden states), a tensor on any device.  Margin-based selection
+    against a linear probe then identifies the most informative unlabelled
+    items for fine-tuning (the paper's active learning, with the backbone
+    as the representation).  The embeddings are concatenated as float32
+    on the index's device, where the index is fitted.
+    """
+
+    def __init__(self, embed_fn, config: IndexConfig, batch_size: int = 64,
+                 device="cuda"):
+        self.embed_fn = embed_fn
+        self.config = config
+        self.batch_size = batch_size
+        self.device = resolve_device(device)
+        self.index: HyperplaneIndex | None = None
+        self.embeddings: torch.Tensor | None = None   # (n, d) float32
+        self.embed_s = 0.0
+
+    def build(self, corpus) -> HyperplaneIndex:
+        """Embed corpus (n, ...) in batches of ``batch_size`` and fit."""
+        t0 = time.perf_counter()
+        outs = []
+        n = corpus.shape[0]
+        for s in range(0, n, self.batch_size):
+            out = self.embed_fn(corpus[s:s + self.batch_size])
+            outs.append(as_float_tensor(out, self.device))
+        self.embeddings = torch.cat(outs, dim=0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.embed_s = time.perf_counter() - t0
+        self.index = HyperplaneIndex(self.config, self.device).fit(
+            self.embeddings)
+        return self.index

@@ -1,8 +1,9 @@
-"""Carry the JAX package's index state across as numpy arrays.
+"""Carry the JAX package's index state and model weights across as numpy
+arrays.
 
 The port never reads a jax object: callers (the parity tests) take plain
-arrays out of a JAX ``MultiTableIndex`` or ``HyperplaneIndex`` and hand
-them here.
+arrays out of a JAX ``MultiTableIndex``, ``HyperplaneIndex`` or parameter
+tree and hand them here.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import torch
 
 from repro_torch.core import functions as F
 from repro_torch.core.indexer import HyperplaneIndex, IndexConfig
+from repro_torch.models.layers import tree_map
+from repro_torch.models.transformer import Transformer
 from repro_torch.serving.multi_table import MultiTableIndex
 from repro_torch.utils.device import resolve_device
 
@@ -88,3 +91,18 @@ def hyperplane_index_from_numpy(config: IndexConfig, family, x, codes,
     index = HyperplaneIndex(config, device=device)
     (fam,) = families_from_numpy([family], index.device)
     return index.restore(fam, x, codes)
+
+
+def params_from_numpy(cfg, tree, *, device="cuda",
+                      dtype=torch.float32) -> Transformer:
+    """The port's ``Transformer`` holding a JAX parameter tree.
+
+    tree: ``jax.tree.map(np.asarray, init_params(key, model_spec(cfg),
+    dtype))``, the body stacked; it is taken apart into one block per
+    layer.  Every leaf must have its spec's shape and be used exactly once
+    (``transformer.match_tree``).
+    """
+    dev = resolve_device(device)
+    tensors = tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)), tree)
+    return Transformer(cfg, tensors, dtype=dtype, device=dev)

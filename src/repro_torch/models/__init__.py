@@ -1,0 +1,3 @@
+from repro_torch.models.transformer import (Transformer, decode_step,
+                                            forward, init_cache, model_spec)
+from repro_torch.models.layers import init_params

@@ -1,0 +1,163 @@
+"""GQA attention block (+qk-norm, qkv-bias, local windows) in PyTorch.
+
+Layouts: x (B, S, D); q (B, S, H, hd); kv (B, S, K, hd).  The attention
+itself is plain PyTorch: the scores come in float32 from the storage-dtype
+operands (the JAX package's ``preferred_element_type=jnp.float32``), masked
+with ``NEG`` and normalised in float32.  The JAX package's online-softmax
+chunking keeps (S, S) scores out of HBM at 32k tokens; the port's prompts
+are short, so one block of scores per call.
+
+Not here (ROADMAP.md item 11c): MLA and M-RoPE.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import (ParamSpec, apply_rope, rms_norm)
+
+NEG = -1e30
+
+
+def _scores(q, k):
+    """(B, H, Sq, Skv) float32 scores from q (B, Sq, H, hd) and
+    k (B, Skv, H, hd).  bf16 products are exact in float32, so upcasting
+    first and summing in float32 is the float32-accumulated product."""
+    return torch.einsum("bqhd,bshd->bhqs", q.to(torch.float32),
+                        k.to(torch.float32))
+
+
+def attention(q, k, v, *, window: int | None = None):
+    """Causal attention.  q: (B, S, H, hd); k, v: (B, Skv, K, hd) with
+    H = K * G.  window=w restricts each query to the last w keys.
+
+    Returns (B, S, H, hd) in q's dtype (the windowed form in k's, as the
+    JAX package's ``_windowed``)."""
+    b, s, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    scale = 1.0 / math.sqrt(hd)
+    scores = _scores(q, k) * scale                       # (b, h, s, skv)
+    qpos = torch.arange(s, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    scores = torch.where(mask[None, None], scores, NEG)
+    m = scores.max(dim=-1, keepdim=True).values
+    p = torch.exp(scores - m)
+    acc = torch.einsum("bhqs,bshd->bhqd", p, v.to(torch.float32))
+    out = acc / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    out = out.permute(0, 2, 1, 3)                        # (b, s, h, hd)
+    return out.to(k.dtype if window is not None else q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+def gqa_spec(cfg):
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        "w_q": ParamSpec((d, h * hd), ("embed", "heads")),
+        "w_k": ParamSpec((d, kh * hd), ("embed", "kv")),
+        "w_v": ParamSpec((d, kh * hd), ("embed", "kv")),
+        "w_o": ParamSpec((h * hd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        s["b_q"] = ParamSpec((h * hd,), ("heads",), "zeros")
+        s["b_k"] = ParamSpec((kh * hd,), ("kv",), "zeros")
+        s["b_v"] = ParamSpec((kh * hd,), ("kv",), "zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), ("null",), "zeros")
+        s["k_norm"] = ParamSpec((hd,), ("null",), "zeros")
+    return s
+
+
+def _project_qkv(cfg, p, x):
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["w_q"]
+    k = x @ p["w_k"]
+    v = x @ p["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kh, hd)
+    v = v.reshape(b, s, kh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _rope_qk(cfg, q, k, pos):
+    if cfg.m_rope_sections:
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md "
+                                  "item 11c)")
+    return (apply_rope(q, pos, cfg.rope_theta),
+            apply_rope(k, pos, cfg.rope_theta))
+
+
+def gqa_forward(cfg, p, x, pos, *, window=None, make_cache=False,
+                cache_len: int = 0):
+    """Train / prefill.  pos: (B, S) int.  With make_cache, the cache holds
+    the last min(alloc, S) keys and values from slot 0, alloc = cache_len
+    (min(window, cache_len) for a windowed block)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    q, k = _rope_qk(cfg, q, k, pos)
+    out = attention(q, k, v, window=window)
+    y = out.reshape(b, s, -1) @ p["w_o"]
+    cache = None
+    if make_cache:
+        alloc = min(window, cache_len) if window else cache_len
+        kc = torch.zeros((b, alloc) + k.shape[2:], dtype=k.dtype,
+                         device=k.device)
+        vc = torch.zeros_like(kc)
+        take = min(alloc, s)
+        kc[:, :take] = k[:, s - take:]
+        vc[:, :take] = v[:, s - take:]
+        cache = {"k": kc, "v": vc}
+    return y, cache
+
+
+def gqa_decode(cfg, p, x, cache, pos: int, *, window=None):
+    """One-token decode.  x: (B, 1, D); cache k/v: (B, A, K, hd);
+    pos: the position written this step (a Python int, uniform across the
+    batch).  A windowed cache is a ring: slot j holds the largest position
+    <= pos congruent to j mod A.  Returns (y, new cache); the cache
+    tensors are updated in place."""
+    b = x.shape[0]
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(cfg, p, x)     # (B,1,H,hd)/(B,1,K,hd)
+    q, k = _rope_qk(cfg, q, k, torch.full((b, 1), pos, device=x.device))
+    kc, vc = cache["k"], cache["v"]
+    alloc = kc.shape[1]
+    slot = pos % alloc if window else pos
+    if not 0 <= slot < alloc:
+        raise ValueError(f"decode position {pos} past the cache's {alloc} "
+                         f"slots")
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = v[:, 0]
+
+    qg = q.reshape(b, kh, h // kh, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.to(torch.float32),
+                          kc.to(torch.float32))
+    scores = scores / math.sqrt(hd)
+    j = torch.arange(alloc, device=x.device)
+    if window:
+        kpos = pos - torch.remainder(pos - j, alloc)
+        valid = (kpos >= 0) & (kpos <= pos) & (pos - kpos < window)
+    else:
+        valid = j <= pos
+    scores = torch.where(valid[None, None, None, :], scores, NEG)
+    attn = torch.softmax(scores, dim=-1).to(vc.dtype)
+    ctx = torch.einsum("bkgs,bskh->bkgh", attn.to(torch.float32),
+                       vc.to(torch.float32))
+    y = ctx.reshape(b, 1, h * hd).to(x.dtype) @ p["w_o"]
+    return y, {"k": kc, "v": vc}

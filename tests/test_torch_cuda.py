@@ -1,4 +1,6 @@
-"""Each CUDA kernel of the port against its plain PyTorch version, on the card.
+"""Each CUDA kernel of the port against its plain PyTorch version, on the card,
+and the LM path there: the fp32 decode-vs-forward and card-vs-CPU checks at
+full width, ``ActivationIndexer`` codes at d = 2,048.
 
 Marked ``cuda``: every test takes the ``cuda`` fixture, which skips when
 this machine has no usable card (decided when the test runs, never at
@@ -759,3 +761,108 @@ def test_index_mesh_scan_on_card(cuda):
             assert np.array_equal(a.table_hits, b.table_hits)
             for ca, cb in zip(a.candidates, b.candidates):
                 assert np.array_equal(ca, cb)
+
+
+def _qwen3_two_layers(device, dtype=torch.float32, seed=0):
+    """qwen3-1.7b at full width, depth cut to 2 layers, seeded weights."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import Transformer, init_params, model_spec
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = init_params(model_spec(cfg), dtype, generator=gen, device=device)
+    return cfg, tree, Transformer(cfg, tree)
+
+
+def test_lm_decode_matches_forward_full_width(cuda):
+    """fp32 on the card, 2 layers of qwen3-1.7b at full width: a decode
+    step after a 16-token prefill reproduces the teacher-forced logits
+    (relative error < 3e-3, the JAX package's bound), and the card's
+    forward logits agree with the CPU's over the same weights (< 1e-4)."""
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import Transformer, decode_step, forward
+    from repro_torch.models.layers import tree_map
+    cfg, tree, model = _qwen3_two_layers(cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 32),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    with strict_fp32(), torch.inference_mode():
+        _, caches, _ = forward(cfg, model, {"tokens": tok[:, :16]},
+                               mode="prefill", cache_len=32)
+        dec, _ = decode_step(cfg, model, tok[:, 16], caches, 16)
+        full, _, _ = forward(cfg, model, {"tokens": tok})
+    ref = full[:, 16]
+    assert ((dec - ref).abs().max() / ref.abs().max()).item() < 3e-3
+    cpu = Transformer(cfg, tree_map(lambda t: t.cpu(), tree))
+    with torch.inference_mode():
+        want, _, _ = forward(cfg, cpu, {"tokens": tok.cpu()})
+    err = (full.cpu() - want).abs().max() / want.abs().max()
+    assert err.item() < 1e-4
+
+
+def test_lm_bf16_card_matches_cpu_full_width(cuda):
+    """bf16 on the card, 2 layers of qwen3-1.7b at full width: logits and
+    aux["normed"] come in bf16 and lie nearer the CPU's bf16 forward over
+    the same weights (held to the JAX package's bf16 forward by
+    test_torch_models.py) than the CPU's bf16 forward lies to its fp32
+    one (the lower-precision control)."""
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import Transformer, forward
+    from repro_torch.models.layers import tree_map
+    cfg, tree, model = _qwen3_two_layers(cuda, dtype=torch.bfloat16)
+    tok = torch.randint(0, cfg.vocab_size, (2, 32),
+                        generator=torch.Generator().manual_seed(3))
+    cpu16 = Transformer(cfg, tree_map(lambda t: t.cpu(), tree))
+    cpu32 = Transformer(cfg, tree, dtype=torch.float32, device="cpu")
+    with strict_fp32(), torch.inference_mode():
+        got = forward(cfg, model, {"tokens": tok.to(cuda)})
+        want = forward(cfg, cpu16, {"tokens": tok})
+        ref = forward(cfg, cpu32, {"tokens": tok})
+    for j in (0, 2):      # logits, then aux (its "normed")
+        g, w, r = ((o[j] if j == 0 else o[j]["normed"]) for o in
+                   (got, want, ref))
+        assert g.dtype == w.dtype == torch.bfloat16
+        control = (w.float() - r).abs().max() / r.abs().max()
+        err = (g.float().cpu() - w.float()).abs().max() / w.float().abs().max()
+        assert err.item() <= control.item()
+
+
+@pytest.mark.parametrize("method", ["bh", "lbh"])
+def test_activation_indexer_codes_vs_plain_at_d2048(cuda, method):
+    """ActivationIndexer over 2-layer full-width qwen3-1.7b activations
+    (d = 2,048): the index's codes (kernel 1 for seeded BH; kernels 8 and
+    4 for LBH) equal the plain hash on the same activations but for bits
+    within the float32 rounding bound of zero."""
+    from repro_torch.core.indexer import ActivationIndexer
+    from repro_torch.models import forward
+    cfg, _, model = _qwen3_two_layers(cuda, dtype=torch.bfloat16)
+
+    @torch.inference_mode()
+    def embed(tokens):
+        _, _, aux = forward(cfg, model, {"tokens": tokens},
+                            return_logits=False)
+        return aux["normed"].float().mean(dim=1)
+
+    corpus = torch.randint(0, cfg.vocab_size, (1500, 32),
+                           generator=torch.Generator().manual_seed(2))
+    icfg = IndexConfig(method=method, bits=20, radius=4, lbh_sample=500,
+                       lbh_steps=30)
+    seeded0, factor0, chain0 = (bilinear_hash_seeded.launches,
+                                bilinear_hash.launches, lbh_chain.launches)
+    ai = ActivationIndexer(embed, icfg, batch_size=64, device=cuda)
+    idx = ai.build(corpus.to(cuda))
+    torch.cuda.synchronize()
+    x = ai.embeddings
+    assert x.shape == (1500, 2048) and x.dtype == torch.float32
+    fam = idx.family
+    if method == "bh":
+        assert bilinear_hash_seeded.launches - seeded0 == 1
+        want = bilinear_hash_seeded_plain(x, [fam.seed], 20)
+    else:
+        assert bilinear_hash.launches - factor0 == 1
+        assert lbh_chain.launches - chain0 == 20 * 30
+        want = bilinear_hash_plain(x, fam.u, fam.v)[None]
+    ratios = sign_flip_ratios(x, [(fam.u, fam.v)], idx.codes[None], want)
+    assert (ratios <= 1.0).all()
+    w = x[:64].mean(0) - x[64:128].mean(0)
+    i, m = idx.query_scan(w, 256)
+    assert 0 <= i < 1500 and np.isfinite(m)

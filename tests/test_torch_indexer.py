@@ -211,3 +211,90 @@ def test_near_zero_check_flags_a_far_bit(corpus, method):
     bad = codes.copy()
     bad[int(score.abs().argmax()), 0] ^= np.uint32(1)
     assert not _bits_near_zero(fam, x, codes, bad)
+
+
+# -- ActivationIndexer over a reduced LM backbone (test_system's setup) ------
+
+@pytest.fixture(scope="module")
+def activation_pair():
+    """The JAX package's ``test_activation_indexer_over_backbone`` setup
+    (reduced qwen3-1.7b, 96 sequences of 16 tokens, seeded BH, 16 bits)
+    and the port's over the same weights and tokens."""
+    import jax
+    from repro.configs.registry import REDUCED as JREDUCED
+    from repro.core.indexer import ActivationIndexer as JActIndexer
+    from repro.models import forward as jforward
+    from repro.models import init_params as jinit
+    from repro.models import model_spec as jspec
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.core.indexer import ActivationIndexer
+    from repro_torch.models import forward
+
+    cfg = JREDUCED["qwen3-1.7b"]
+    params = jinit(jax.random.PRNGKey(0), jspec(cfg), jnp.float32)
+
+    @jax.jit
+    def jembed(tokens):
+        _, _, aux = jforward(cfg, params, {"tokens": tokens}, mode="train",
+                             return_logits=False)
+        return aux["normed"].mean(axis=1)
+
+    model = interop.params_from_numpy(
+        REDUCED["qwen3-1.7b"], jax.tree.map(np.asarray, params),
+        device="cpu")
+
+    def tembed(tokens):
+        _, _, aux = forward(model.cfg, model, {"tokens": tokens},
+                            return_logits=False)
+        return aux["normed"].mean(dim=1)
+
+    corpus = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (96, 16)).astype(np.int32)
+    icfg = dict(method="bh", bits=16, radius=3)
+    jai = JActIndexer(jembed, JConfig(**icfg), batch_size=32)
+    jai.build(jnp.asarray(corpus))
+    tai = ActivationIndexer(tembed, TConfig(**icfg), batch_size=32,
+                            device="cpu")
+    tai.build(torch.from_numpy(corpus).long())
+    return jai, tai
+
+
+def test_activation_indexer_embeddings_match_jax(activation_pair):
+    jai, tai = activation_pair
+    want = np.asarray(jai.embeddings)
+    got = tai.embeddings.numpy()
+    assert got.shape == want.shape == (96, 128)
+    assert tai.embeddings.dtype == torch.float32
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert tai.index.x is tai.embeddings and tai.embed_s > 0
+
+
+def test_activation_indexer_codes_match_jax(activation_pair):
+    """With the JAX family carried across (the port seeds its own family
+    from ``table_seed``, the JAX package from its PRNG key), the port's
+    codes over its embeddings agree with the JAX codes but for near-zero
+    bits."""
+    jai, tai = activation_pair
+    fam, = interop.families_from_numpy([_spec(jai.index.family)],
+                                       device="cpu")
+    assert type(tai.index.family) is type(fam) is TF.SeededBHHash
+    want = np.asarray(jai.index.codes)
+    emb = tai.embeddings.numpy()
+    carried = TIndex(TConfig(method="bh", bits=16, radius=3),
+                     device="cpu").fit(emb, family=fam)
+    assert _bits_near_zero(fam, emb, to_numpy_u32(carried.codes), want)
+
+
+def test_activation_indexer_query_scan_matches_jax(activation_pair):
+    jai, tai = activation_pair
+    tidx = interop.hyperplane_index_from_numpy(
+        TConfig(method="bh", bits=16, radius=3), _spec(jai.index.family),
+        tai.embeddings, np.asarray(jai.index.codes), device="cpu")
+    emb = tai.embeddings.numpy()
+    for w in np.random.default_rng(8).normal(size=(8, 128)).astype(
+            np.float32):
+        ij, mj = jai.index.query_scan(w, l=8)
+        it, mt = tidx.query_scan(w, l=8)
+        assert it == ij
+        assert abs(mt - mj) <= _margin_tol(emb, w, ij, mj)
+        assert 0 <= ij < 96 and np.isfinite(mj)

@@ -35,7 +35,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/serving/async_service.py",
             "src/repro_torch/kernels/hamming.py",
             "src/repro_torch/utils/mesh.py",
-            "src/repro_torch/examples/active_learning_svm.py"} <= walked
+            "src/repro_torch/examples/active_learning_svm.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/registry.py",
+            "src/repro_torch/configs/qwen3_1_7b.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/examples/serve_lm.py",
+            "src/repro_torch/examples/al_data_curation.py"} <= walked
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in PORT_FILES for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -65,6 +75,39 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         interop.families_from_numpy(
             [{"kind": "bh", "u": np.zeros((4, 2)), "v": np.zeros((4, 2))}])
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    """The LM path's entry points with their default device raise where
+    no card is present, before any work."""
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.core.indexer import ActivationIndexer, IndexConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import (Transformer, init_cache, init_params,
+                                    model_spec)
+    from repro_torch.models.transformer import init_block_cache
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve.engine import Engine
+    from repro_torch import interop
+    cfg = REDUCED["qwen3-1.7b"]
+    tree = init_params(model_spec(cfg), torch.float32,
+                       generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    model = Transformer(cfg, tree)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        Engine(cfg, model)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        ActivationIndexer(lambda t: t, IndexConfig(method="bh"))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        serve.main(["--batch", "1", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        interop.params_from_numpy(cfg, tree_map(lambda v: v.numpy(), tree))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        init_cache(cfg, 1, 4, torch.float32)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        init_block_cache(cfg, "attn", 1, 4, torch.float32)
+    assert model.embed.device.type == "cpu"
 
 
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
