@@ -79,6 +79,17 @@ d_model 2,048, 1.72 B parameters, bf16 weights from ``--seed``):
   through ``query_scan`` (kernel 2) and ``query``, each answer's margin
   held to the exhaustive minimum and the codes to the plain versions.
 
+Then the MoE serving path at full width and depth (deepseek-moe-16b: 28
+layers, d_model 2,048, 64 routed experts (top 6) and 2 shared, the first
+layer dense; 16.38 B parameters in bf16 from ``--seed``):
+``Engine.generate`` as above, the decode step and the prefill beside
+their bounds at the data-sheet rates, the prefill's drop share at the
+published capacity factor; gated at 3 layers and full width: the
+dispatch's integers on the card against the CPU's on the same router ids
+(bit for bit), fp32 decode against teacher-forced forward at the
+drop-free capacity factor E / k (< 3e-3), the card's fp32 and bf16
+forward against the CPU's.  It launches none of the eight kernels.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON reports kernels 1, 2, 4 and 8 with
 the activation index path's launches, 5 with the sharded path's and 3, 6
@@ -126,15 +137,22 @@ SHARD_INSERTS = 5_000
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
 GATE_S, CUT_LAYERS, CUT_S = 128, 2, 32
+# the MoE serving path (deepseek-moe-16b at full width and depth) takes
+# the same batch, prompt, generated tokens and gate lengths; its gates run
+# at 3 layers: the dense prelude and two stacked MoE blocks
+MOE_ARCH = "deepseek-moe-16b"
+MOE_CUT_LAYERS = 3
 # the activation index path: sequences, their length, the embedding
 # batch, probe normals and their labelled subsets, the scan's l
 ACT_N, ACT_S, ACT_BATCH = 8192, 128, 64
 ACT_PROBES, ACT_LABELLED, ACT_SCAN_L = 32, 64, 256
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
-# cores; popcount issues 16 results per clock per SM (CUDA programming
-# guide, compute capability 9.0), at the card's maximum SM clock.
+# cores, bf16 on the tensor cores (dense); popcount issues 16 results per
+# clock per SM (CUDA programming guide, compute capability 9.0), at the
+# card's maximum SM clock.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 POPC_PER_CLK_SM = 16
 
 
@@ -503,47 +521,18 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def lm_phase(args, cfg, dev):
-    """The LM serving path at cfg's full width and depth: bf16 weights
-    from ``--seed``, ``Engine.generate`` twice on LM_BATCH random prompts
-    (greedy), then the per-step times; the fp32 gates (decode against
-    teacher-forced forward at full depth; card against CPU at CUT_LAYERS
-    layers), the bf16 gate (card against CPU at CUT_LAYERS layers, bounded
-    by bf16's own distance from fp32) and bf16 against fp32 greedy
-    agreement.  Sizes are the module's constants.  Returns the bf16 model
-    and its stats."""
-    import dataclasses
-
+def serve_timed(cfg, model, prompts, gen, dev, stats):
+    """Engine.generate twice on prompts (greedy; the two must agree), then
+    the same loop with each step timed alone (host clock around a step
+    that ends in a synchronise) and, on the card, one decode step and one
+    prefill under torch.profiler.  Fills stats; returns the engine and
+    the generated tokens."""
     import numpy as np
     import torch
-    from repro_torch.core.functions import strict_fp32
-    from repro_torch.models import (Transformer, decode_step, forward,
-                                    init_params, model_spec)
-    from repro_torch.models.layers import tree_map
     from repro_torch.serve.engine import Engine
-    batch, prompt, gen = LM_BATCH, LM_PROMPT, LM_GEN
-    gate_s, cut_layers, cut_s = GATE_S, CUT_LAYERS, CUT_S
-    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, prompt = prompts.shape
     cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    tree = init_params(model_spec(cfg), torch.bfloat16, generator=g,
-                       device=dev)
-    model = Transformer(cfg, tree)
-    _sync(torch, dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_gib = sum(p.numel() * p.element_size()
-                     for p in model.parameters()) / 2**30
-    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}: {n_params} parameters, {weight_gib:.3f} "
-          f"GiB in bf16, initialised in {time.perf_counter() - t0:.2f} s")
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
-                            device=dev)
     engine = Engine(cfg, model, max_len=prompt + gen, device=dev)
-    stats = {}
     outs = []
     for label in ("first", "steady"):
         t0 = time.perf_counter()
@@ -557,8 +546,6 @@ def lm_phase(args, cfg, dev):
           "generated tokens lie in the vocabulary")
     stats["tokens_per_s"] = batch * gen / stats["steady_s"]
 
-    # the same loop, each step timed alone (host clock around a step
-    # that ends in a synchronise)
     with torch.inference_mode():
         _sync(torch, dev)
         t0 = time.perf_counter()
@@ -602,8 +589,7 @@ def lm_phase(args, cfg, dev):
     del caches
     stats.update(prefill_ms=prefill_ms,
                  decode_p50_ms=float(np.quantile(step_ms, 0.5)),
-                 decode_p95_ms=float(np.quantile(step_ms, 0.95)),
-                 weight_gib=weight_gib)
+                 decode_p95_ms=float(np.quantile(step_ms, 0.95)))
     if cuda:
         stats["peak_serving_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"Engine.generate (B {batch}, prompt {prompt}, {gen} greedy "
@@ -613,31 +599,52 @@ def lm_phase(args, cfg, dev):
           f"{prefill_ms:.3f} ms; decode step p50 "
           f"{stats['decode_p50_ms']:.3f} ms, p95 "
           f"{stats['decode_p95_ms']:.3f} ms ({gen - 1} steps); weights "
-          f"{weight_gib:.3f} GiB; peak device "
+          f"{stats['weight_gib']:.3f} GiB; peak device "
           f"{stats.get('peak_serving_gib', float('nan')):.3f} GiB")
+    return engine, out
 
-    # gate: decode step against teacher-forced logits, fp32, full depth
-    model32 = Transformer(cfg, tree, dtype=torch.float32)
-    tok = torch.randint(0, cfg.vocab_size, (2, gate_s), generator=g,
-                        device=dev)
-    half = gate_s // 2
-    with strict_fp32(), torch.inference_mode():
-        _, caches, _ = forward(cfg, model32, {"tokens": tok[:, :half]},
-                               mode="prefill", cache_len=gate_s)
-        dec, _ = decode_step(cfg, model32, tok[:, half], caches, half)
-        full, _, _ = forward(cfg, model32, {"tokens": tok})
-    err_dec = rel_err(dec, full[:, half])
-    del caches, full, dec
-    print(f"fp32 gate, full depth (B 2, S {gate_s}, prefill {half}): decode "
-          f"step vs teacher-forced logits at position {half}: relative "
-          f"error {err_dec}")
-    check(err_dec < 3e-3, "decode matches forward within 3e-3 (fp32)")
 
-    # gates: card against CPU at the cut depth, fp32 and bf16
-    cut = dataclasses.replace(cfg, num_layers=cut_layers)
-    tree_cut = dict(tree, body=tree_map(lambda t: t[:cut_layers],
-                                        tree["body"]))
-    tok = tok[:, :cut_s]
+def init_model(args, cfg, dev, stats):
+    """cfg's parameter tree in bf16 from ``--seed`` on dev, and the model
+    holding it (views, no copy).  Returns (tree, model, generator)."""
+    import torch
+    from repro_torch.models import Transformer, init_params, model_spec
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    tree = init_params(model_spec(cfg), torch.bfloat16, generator=g,
+                       device=dev)
+    model = Transformer(cfg, tree)
+    _sync(torch, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    stats["weight_gib"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters()) / 2**30
+    stats["params"] = n_params
+    ff = (f"d_ff {cfg.d_ff}" if not cfg.num_experts else
+          f"{cfg.num_experts} experts (top {cfg.experts_per_token}) + "
+          f"{cfg.num_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}, "
+          f"{cfg.first_dense_layers} dense layer of d_ff {cfg.d_ff}")
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads, {ff}, "
+          f"vocab {cfg.vocab_size}: {n_params} parameters, "
+          f"{stats['weight_gib']:.3f} GiB in bf16, initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return tree, model, g
+
+
+def cut_gates(cfg, tree, layers, tok, dev, stats):
+    """The gates at ``layers`` layers (the stacked body cut): the card's
+    fp32 forward logits against the CPU's (< 1e-4), and its bf16 logits
+    nearer the CPU's bf16 logits than CPU bf16 lies to CPU fp32."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import Transformer, forward
+    from repro_torch.models.layers import tree_map
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    n_body = layers - len(tree.get("prelude", []))
+    tree_cut = dict(tree, body=tree_map(lambda t: t[:n_body], tree["body"]))
+    b, s = tok.shape
     logits = {}
     with strict_fp32(), torch.inference_mode():
         for dt in (torch.float32, torch.bfloat16):
@@ -647,7 +654,7 @@ def lm_phase(args, cfg, dev):
                     {"tokens": t})[0]
     f32, b16 = torch.float32, torch.bfloat16
     err_cpu = rel_err(logits[f32, dev.type], logits[f32, "cpu"])
-    print(f"fp32 gate, {cut_layers} layers (B 2, S {cut_s}): {dev} vs CPU "
+    print(f"fp32 gate, {layers} layers (B {b}, S {s}): {dev} vs CPU "
           f"forward logits: relative error {err_cpu}")
     check(err_cpu < 1e-4, f"{dev} forward matches the CPU within 1e-4")
     # the CPU's bf16 forward is held to the JAX package's bf16 forward by
@@ -656,14 +663,69 @@ def lm_phase(args, cfg, dev):
     err16_cpu = rel_err(logits[b16, dev.type], logits[b16, "cpu"])
     ctl16 = rel_err(logits[b16, "cpu"], logits[f32, "cpu"])
     err16_32 = rel_err(logits[b16, dev.type], logits[f32, dev.type])
-    print(f"bf16 gate, {cut_layers} layers (B 2, S {cut_s}): {dev} vs CPU "
+    print(f"bf16 gate, {layers} layers (B {b}, S {s}): {dev} vs CPU "
           f"bf16 forward logits: relative error {err16_cpu}; control, CPU "
           f"bf16 vs fp32: {ctl16}; {dev} bf16 vs fp32: {err16_32}")
     check(all(v.dtype == k[0] for k, v in logits.items()),
           "each forward's logits come in its weights' dtype")
     check(err16_cpu <= ctl16, f"{dev} bf16 forward is nearer the CPU's bf16 "
           f"forward than bf16 is to fp32")
-    del logits
+    stats.update(err_cpu=err_cpu, err16_cpu=err16_cpu, bf16_control=ctl16,
+                 err16_fp32=err16_32)
+    return tree_cut
+
+
+def decode_gate(cfg, model32, tok, dev):
+    """fp32 decode step (prefilled half way) against the teacher-forced
+    logits at that position; returns the relative error."""
+    import torch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import decode_step, forward
+    half = tok.shape[1] // 2
+    with strict_fp32(), torch.inference_mode():
+        _, caches, _ = forward(cfg, model32, {"tokens": tok[:, :half]},
+                               mode="prefill", cache_len=tok.shape[1])
+        dec, _ = decode_step(cfg, model32, tok[:, half], caches, half)
+        full, _, _ = forward(cfg, model32, {"tokens": tok})
+    return rel_err(dec, full[:, half])
+
+
+def lm_phase(args, cfg, dev):
+    """The LM serving path at cfg's full width and depth: bf16 weights
+    from ``--seed``, ``Engine.generate`` twice on LM_BATCH random prompts
+    (greedy), then the per-step times; the fp32 gates (decode against
+    teacher-forced forward at full depth; card against CPU at CUT_LAYERS
+    layers), the bf16 gate (card against CPU at CUT_LAYERS layers, bounded
+    by bf16's own distance from fp32) and bf16 against fp32 greedy
+    agreement.  Sizes are the module's constants.  Returns the bf16 model
+    and its stats."""
+    import numpy as np
+    import torch
+    from repro_torch.models import Transformer
+    from repro_torch.serve.engine import Engine
+    batch, prompt, gen = LM_BATCH, LM_PROMPT, LM_GEN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    tree, model, g = init_model(args, cfg, dev, stats)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            device=dev)
+    _, out = serve_timed(cfg, model, prompts, gen, dev, stats)
+
+    # gate: decode step against teacher-forced logits, fp32, full depth
+    model32 = Transformer(cfg, tree, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (2, GATE_S), generator=g,
+                        device=dev)
+    err_dec = decode_gate(cfg, model32, tok, dev)
+    print(f"fp32 gate, full depth (B 2, S {GATE_S}, prefill "
+          f"{GATE_S // 2}): decode step vs teacher-forced logits at "
+          f"position {GATE_S // 2}: relative error {err_dec}")
+    check(err_dec < 3e-3, "decode matches forward within 3e-3 (fp32)")
+
+    # gates: card against CPU at the cut depth, fp32 and bf16
+    cut_gates(cfg, tree, CUT_LAYERS, tok[:, :CUT_S], dev, stats)
 
     # report: bf16 against fp32 greedy tokens on the same prompts
     out32 = Engine(cfg, model32, max_len=prompt + gen,
@@ -671,9 +733,7 @@ def lm_phase(args, cfg, dev):
     same = (out32 == out).float().mean().item()
     first_diff = [int(np.flatnonzero(r)[0]) if r.any() else None
                   for r in (out32 != out).cpu().numpy()]
-    stats.update(bf16_fp32_agreement=same, err_decode=err_dec,
-                 err_cpu=err_cpu, err16_cpu=err16_cpu, bf16_control=ctl16,
-                 err16_fp32=err16_32)
+    stats.update(bf16_fp32_agreement=same, err_decode=err_dec)
     if cuda:
         stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"bf16 vs fp32 greedy tokens: {same:.4f} of {batch * gen} agree; "
@@ -684,6 +744,187 @@ def lm_phase(args, cfg, dev):
     if cuda:
         torch.cuda.empty_cache()
     return model, stats
+
+
+def moe_bounds(cfg, model, batch, prompt, gen):
+    """The least times of one decode step and of the prefill on the card
+    at the data-sheet rates: every weight read once (the embedding's
+    batch rows only; the KV caches' filled slots too) over HBM_BYTES_S,
+    and the matmul operations as the reference computes them (the expert
+    products over the whole (E, B, cap, D) buffer) over BF16_FLOP_S.  A
+    decode step is the median one: its caches hold prompt + gen // 2
+    positions.  Returns {name: (ms, bound_by, bytes, flops)}."""
+    from repro_torch.models.moe import capacity
+    d, v = cfg.d_model, cfg.vocab_size
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    embed_bytes = model.embed.numel() * model.embed.element_size()
+    kv_row = 2 * cfg.num_kv_heads * cfg.head_dim * 2      # k and v, bf16
+    attn_w = (2 * cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim * d
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+
+    def flops(s, ctx):
+        t = batch * s
+        e, f = cfg.num_experts, cfg.moe_d_ff
+        out = 2 * t * attn_w * cfg.num_layers                 # projections
+        out += 4 * batch * cfg.num_heads * cfg.head_dim * s * ctx \
+            * cfg.num_layers                                  # scores, PV
+        out += 2 * t * 3 * d * cfg.d_ff * cfg.first_dense_layers
+        out += n_moe * (2 * e * batch * capacity(cfg, s) * 3 * d * f
+                        + 2 * t * 3 * d * cfg.num_shared_experts * f
+                        + 2 * t * d * e)                      # router
+        return out + 2 * t * d * v                            # unembed
+
+    out = {}
+    for name, s, ctx, kv in (
+            ("decode", 1, prompt + gen // 2, prompt + gen // 2),
+            ("prefill", prompt, prompt, prompt)):
+        nbytes = (wbytes - embed_bytes + batch * s * d * 2
+                  + kv * batch * kv_row * cfg.num_layers)
+        fl = flops(s, ctx)
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, fl / BF16_FLOP_S
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations",
+                     nbytes, fl)
+    return out
+
+
+def moe_phase(args, cfg, dev, zero_counts, read_counts):
+    """The MoE serving path at cfg's full width and depth (bf16 weights
+    from ``--seed``): ``Engine.generate`` twice, the per-step times beside
+    their bounds, the prefill's drop share at the published capacity
+    factor; then, at MOE_CUT_LAYERS layers (the dense prelude and two
+    stacked MoE blocks) at full width: the dispatch's integers on the card
+    against the CPU's on the same router ids, bit for bit; fp32 decode
+    against teacher-forced forward at the drop-free capacity factor E / k
+    (< 3e-3); the card's fp32 and bf16 forward against the CPU's
+    (``cut_gates``).  No kernel of the table runs: every count stays 0.
+    Returns its stats."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import Transformer, forward, moe
+    batch, prompt, gen = LM_BATCH, LM_PROMPT, LM_GEN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stats = {}
+    tree, model, g = init_model(args, cfg, dev, stats)
+    if cuda:
+        stats["peak_init_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"peak device memory while the weights were drawn "
+              f"{stats['peak_init_gib']:.3f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            device=dev)
+    engine, _ = serve_timed(cfg, model, prompts, gen, dev, stats)
+    bounds = moe_bounds(cfg, model, batch, prompt, gen)
+    for name, key in (("decode", "decode_p50_ms"), ("prefill", "prefill_ms")):
+        ms, by, nbytes, fl = bounds[name]
+        stats[f"{name}_bound_ms"] = ms
+        print(f"{name} bound {ms:.3f} ms ({by}: {nbytes / 1e9:.2f} GB at "
+              f"{HBM_BYTES_S / 1e12:.2f} TB/s, {fl / 1e12:.3f} TFLOP at "
+              f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s bf16); measured "
+              f"{stats[key]:.3f} ms host clock"
+              + (f", {stats[name + '_device_ms']:.3f} ms device busy"
+                 if cuda else ""))
+    launched = read_counts()
+    check(not any(launched.values()), f"the MoE path launches none of the "
+          f"eight kernels: {launched}")
+    print("the MoE path launched none of the eight kernels of the table "
+          "(their launch counts stayed 0 through it)")
+
+    # the prefill's dispatches: drop share, and the integers against the
+    # CPU's on the same router ids
+    seen = []
+    dispatch = moe._dispatch
+
+    def recording(cfg_, ids):
+        out = dispatch(cfg_, ids)
+        seen.append((ids, out))
+        return out
+
+    moe._dispatch = recording
+    try:
+        engine.prefill_step(model, {"tokens": prompts})
+    finally:
+        moe._dispatch = dispatch
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    check(len(seen) == n_moe, f"one dispatch per MoE layer ({len(seen)})")
+    dropped = sum(int((~v).sum()) for _, (_, _, _, v) in seen)
+    assigned = sum(v.numel() for _, (_, _, _, v) in seen)
+    mismatch = 0
+    for ids, got in seen:
+        want = dispatch(cfg, ids.cpu())
+        mismatch += sum(int((a.cpu() != b).sum())
+                        for a, b in zip(got, want, strict=True))
+    stats.update(drop_share=dropped / assigned, dispatch_mismatch=mismatch,
+                 capacity_prefill=moe.capacity(cfg, prompt),
+                 capacity_decode=moe.capacity(cfg, 1))
+    print(f"prefill dispatch (capacity factor {cfg.capacity_factor}, "
+          f"{stats['capacity_prefill']} slots per expert and row; decode "
+          f"{stats['capacity_decode']}): {dropped} of {assigned} "
+          f"assignments dropped over {n_moe} MoE layers, share "
+          f"{dropped / assigned:.5f}; {dev} vs CPU dispatch (sort_idx, "
+          f"tok, slot, valid) on the same router ids: {mismatch} entries "
+          f"differ")
+    check(mismatch == 0, "the dispatch's integers match the CPU's bit for "
+          "bit")
+    del seen, engine
+    if cuda:
+        stats["peak_serving_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # gates at the cut depth, full width
+    tok = torch.randint(0, cfg.vocab_size, (2, GATE_S), generator=g,
+                        device=dev)
+    tree_cut = cut_gates(cfg, tree, MOE_CUT_LAYERS, tok[:, :CUT_S], dev,
+                         stats)
+    # what float32 rounding alone does at this depth: the CPU's logits
+    # when its embedding moves by one rounding (2^-24 relative)
+    cut = dataclasses.replace(cfg, num_layers=MOE_CUT_LAYERS)
+    cpu32 = Transformer(cut, tree_cut, dtype=torch.float32, device="cpu")
+    sign = torch.randint(0, 2, cpu32.embed.shape,
+                         generator=torch.Generator().manual_seed(args.seed))
+    with strict_fp32(), torch.inference_mode():
+        batch_cpu = {"tokens": tok[:, :CUT_S].cpu()}
+        base = forward(cut, cpu32, batch_cpu)[0]
+        cpu32.embed.mul_(1 + 2.0 ** -24 * (2 * sign - 1))
+        moved = forward(cut, cpu32, batch_cpu)[0]
+    stats["fp32_conditioning"] = rel_err(moved, base)
+    del cpu32, base, moved
+    print(f"fp32 conditioning, {MOE_CUT_LAYERS} layers (B 2, S {CUT_S}): "
+          f"the CPU's forward logits move by {stats['fp32_conditioning']} "
+          f"when the embedding moves by one float32 rounding (reported "
+          f"beside the card-vs-CPU error above)")
+    nodrop = dataclasses.replace(
+        cfg, num_layers=MOE_CUT_LAYERS,
+        capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    check(moe.capacity(nodrop, GATE_S) >= GATE_S,
+          "the drop-free factor gives every token a slot")
+    model32 = Transformer(nodrop, tree_cut, dtype=torch.float32)
+    err_dec = decode_gate(nodrop, model32, tok, dev)
+    del model32
+    published = dataclasses.replace(nodrop,
+                                    capacity_factor=cfg.capacity_factor)
+    err_pub = decode_gate(published, Transformer(
+        published, tree_cut, dtype=torch.float32), tok, dev)
+    print(f"fp32 gate, {MOE_CUT_LAYERS} layers (B 2, S {GATE_S}, prefill "
+          f"{GATE_S // 2}): decode step vs teacher-forced logits at "
+          f"position {GATE_S // 2}, capacity factor "
+          f"{nodrop.capacity_factor:.4f} (drop-free): relative error "
+          f"{err_dec}; at the published {cfg.capacity_factor} (drops in "
+          f"the forward, none in decode; reported): {err_pub}")
+    check(err_dec < 3e-3, "decode matches forward within 3e-3 (fp32, "
+          "drop-free)")
+    stats.update(err_decode=err_dec, err_decode_published=err_pub)
+    if cuda:
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, tree, tree_cut
+    if cuda:
+        torch.cuda.empty_cache()
+    return stats
 
 
 def activation_phase(args, cfg, model, dev, zero_counts, read_counts,
@@ -2666,8 +2907,15 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # -- 21. times ----------------------------------------------------------
-    phase("21 times")
+    # -- 21. the MoE serving path: deepseek-moe-16b at full size ----------
+    phase("21 MoE serving path")
+    moe_stats = moe_phase(args, get_arch(MOE_ARCH), dev, zero_counts,
+                          read_counts)
+    print(f"card: {smi}")
+    print("MoE path stats: " + json.dumps(moe_stats))
+
+    # -- 22. times ----------------------------------------------------------
+    phase("22 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []

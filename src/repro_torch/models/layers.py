@@ -6,8 +6,9 @@ and the shape checks of ``transformer.Transformer``.  Layouts are the JAX
 package's: a projection is ``x @ w`` with w of shape (d_in, d_out), so
 weights carry across without transposes.
 
-Not here (later slices, ROADMAP.md items 11b / 11c): the activation and
-MoE sharding helpers, M-RoPE and the losses.
+Not here: the activation and MoE sharding helpers (GSPMD layout hints,
+with no single-device counterpart), M-RoPE (ROADMAP.md item 11c) and the
+losses (item 11b).
 """
 from __future__ import annotations
 
@@ -70,15 +71,17 @@ def init_params(struct, dtype, *, generator: torch.Generator, device):
             return torch.ones(spec.shape, dtype=dtype, device=device)
         if spec.init != "normal":
             raise NotImplementedError(
-                f"init {spec.init!r} belongs to a block kind outside the "
-                f"dense-attention slice (ROADMAP.md item 11c)")
+                f"init {spec.init!r} belongs to a block kind the port does "
+                f"not run yet (ROADMAP.md item 11c)")
         scale = spec.scale
         if scale is None:
             fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         z = torch.randn(spec.shape, generator=generator,
                         dtype=torch.float32, device=generator.device)
-        return (scale * z).to(device=device, dtype=dtype)
+        # in place: a second float32 temporary of a stacked expert leaf
+        # (27 x 64 x 2,048 x 1,408) would be another 19.93 GB
+        return z.mul_(scale).to(device=device, dtype=dtype)
 
     return tree_map(one, struct)
 

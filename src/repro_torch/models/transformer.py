@@ -1,5 +1,5 @@
 """Model assembly: block definitions, forward (train / prefill) and
-single-token decode with KV caches, for dense-attention architectures.
+single-token decode with KV caches, for GQA transformers, dense or MoE.
 
 The parameter tree is the JAX package's (``model_spec``): homogeneous runs
 of the layer pattern are stacked under ``body`` with a leading (n_rep,)
@@ -13,10 +13,13 @@ Caches are a list with one {"k", "v"} dict per layer, in the blocks'
 order (the JAX package stacks the body's).
 
 Block kinds: attn / attn_dense — (pre-norm attention) + (pre-norm dense
-FFN).  Everything else raises ``NotImplementedError`` (ROADMAP.md item
-11c): MoE, RG-LRU and SSM blocks, MLA, M-RoPE, embedding inputs, the audio
-family's positions and the MTP head.  Training and its losses are item
-11b.
+FFN); moe — (pre-norm attention) + (pre-norm MoE FFN, ``moe.apply_moe``),
+after the dense prelude of ``first_dense_layers``.  The stacked body's
+expert weights, (n_rep, E, d_in, d_out), are taken apart into per-block
+views like every other stacked leaf.  Everything else raises
+``NotImplementedError`` (ROADMAP.md item 11c): RG-LRU and SSM blocks, MLA,
+M-RoPE, embedding inputs, the audio family's positions and the MTP head.
+Training and its losses are item 11b.
 """
 from __future__ import annotations
 
@@ -27,12 +30,13 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamSpec, apply_ffn, apply_norm,
                                        ffn_spec, is_spec, norm_spec,
                                        stack_specs, tree_map)
 from repro_torch.utils.device import resolve_device
 
-DENSE_KINDS = ("attn", "attn_dense")
+ATTN_KINDS = ("attn", "attn_dense", "moe")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -48,14 +52,12 @@ def check_supported(cfg: ArchConfig) -> None:
         unsupported.append("m_rope_sections")
     if cfg.mtp:
         unsupported.append("mtp")
-    kinds = sorted(set(cfg.layer_kinds) - set(DENSE_KINDS))
-    if cfg.num_experts:
-        kinds = sorted(set(kinds) | {"moe"})
+    kinds = sorted(set(cfg.layer_kinds) - set(ATTN_KINDS))
     unsupported += [f"block kind {k!r}" for k in kinds]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not ported yet: the port "
-            f"runs dense GQA transformers (ROADMAP.md item 11c)")
+            f"runs GQA transformers, dense or MoE (ROADMAP.md item 11c)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,12 +65,17 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_spec(cfg: ArchConfig, kind: str):
-    if kind not in DENSE_KINDS:
+    if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet "
                                   f"(ROADMAP.md item 11c)")
     d = cfg.d_model
-    return {"ln1": norm_spec(cfg, d), "attn": attn.gqa_spec(cfg),
-            "ln2": norm_spec(cfg, d), "ffn": ffn_spec(cfg, d, cfg.d_ff)}
+    s = {"ln1": norm_spec(cfg, d), "attn": attn.gqa_spec(cfg),
+         "ln2": norm_spec(cfg, d)}
+    if kind == "moe":
+        s["moe"] = moe_mod.moe_spec(cfg)
+    else:
+        s["ffn"] = ffn_spec(cfg, d, cfg.d_ff)
+    return s
 
 
 def _attn_window(cfg, kind):
@@ -89,7 +96,11 @@ def apply_block(cfg, kind, p, x, pos, *, mode: str, cache=None,
             cfg, p["attn"], h_in, pos, window=window,
             make_cache=(mode == "prefill"), cache_len=cache_len)
     x = x + h
-    x = x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    h2 = apply_norm(cfg, p["ln2"], x)
+    if kind == "moe":
+        x = x + moe_mod.apply_moe(cfg, p["moe"], h2)
+    else:
+        x = x + apply_ffn(cfg, p["ffn"], h2)
     return x, new_cache
 
 
@@ -97,7 +108,7 @@ def init_block_cache(cfg, kind, batch: int, cache_len: int, dtype,
                      device="cuda"):
     """One layer's {"k", "v"} cache, zeros on ``device`` (default the
     card; a missing card raises)."""
-    if kind not in DENSE_KINDS:
+    if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet "
                                   f"(ROADMAP.md item 11c)")
     device = resolve_device(device)
@@ -195,7 +206,7 @@ class ParamTree(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A dense-attention LM holding a ``model_spec`` parameter tree.
+    """A GQA LM, dense or MoE, holding a ``model_spec`` parameter tree.
 
     params: the tree of tensors in the spec's structure (``match_tree``),
     ``body`` stacked.  Each block's parameters are views of the stacked

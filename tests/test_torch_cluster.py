@@ -62,11 +62,24 @@ def _queries(b=8, seed=1):
         np.float32)
 
 
+# routers a test made, closed after it (close waits for a call abandoned
+# at its deadline, so none runs on into the next test's monkeypatches)
+_OPEN: list = []
+
+
+@pytest.fixture(autouse=True)
+def _close_routers():
+    yield
+    while _OPEN:
+        _OPEN.pop().close()
+
+
 def _router(x, fault_plan=None, **kw):
     kw.setdefault("shards", SHARDS)
     kw.setdefault("replicas", REPLICAS)
     kw.setdefault("deadline_ms", 2000.0)
     r = ShardReplicaRouter(_cfg(), fault_plan=fault_plan, device="cpu", **kw)
+    _OPEN.append(r)
     r.fit(x)
     return r
 
@@ -412,6 +425,9 @@ def test_first_use_build_error_raises_instead_of_degrading(tmp_path,
     assert st["failovers"] == 0 and st["degraded_answers"] == 0
     assert not _build.building()
     monkeypatch.undo()
+    # the scenario ends here; the identity check after it runs at the
+    # fixture's deadline, out of reach of the host's speed
+    router.deadline_s = 2.0
     _assert_same_answer(router.query_scan_batch(w, l=16, topk=2),
                         _fresh(x).query_scan_batch(w, l=16, topk=2))
 
@@ -456,6 +472,8 @@ def test_late_kernel_error_is_raised_by_the_next_query(monkeypatch):
     assert router.stats()["degraded_answers"] == 1
     assert all(h["alive"] and h["error"] is None
                for row in router.health() for h in row)
+    # as above: the identity check runs at the fixture's deadline
+    router.deadline_s = 2.0
     _assert_same_answer(router.query_scan_batch(w, l=16, topk=2),
                         _fresh(x).query_scan_batch(w, l=16, topk=2))
 

@@ -1,6 +1,7 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the card,
 and the LM path there: the fp32 decode-vs-forward and card-vs-CPU checks at
-full width, ``ActivationIndexer`` codes at d = 2,048.
+full width (qwen3-1.7b, and deepseek-moe-16b's MoE layer and 3 of its
+layers), ``ActivationIndexer`` codes at d = 2,048.
 
 Marked ``cuda``: every test takes the ``cuda`` fixture, which skips when
 this machine has no usable card (decided when the test runs, never at
@@ -866,3 +867,74 @@ def test_activation_indexer_codes_vs_plain_at_d2048(cuda, method):
     w = x[:64].mean(0) - x[64:128].mean(0)
     i, m = idx.query_scan(w, 256)
     assert 0 <= i < 1500 and np.isfinite(m)
+
+
+def test_moe_layer_on_card_matches_cpu(cuda):
+    """The MoE FFN of deepseek-moe-16b at full width (E 64, top 6, d 2,048,
+    moe_d_ff 1,408; one layer's expert weights, 1 / sqrt(d) router) on
+    B 8 x S 128 tokens at the published capacity factor, where tokens
+    drop: top-k ids with ties come in the CPU's order (lower id first);
+    the dispatch's integers equal the CPU's bit for bit; fp32 output
+    against the CPU's within 1e-5 relative; bf16 output repeats itself
+    bit for bit."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params, tree_map
+    cfg = get_arch("deepseek-moe-16b")
+    gen = torch.Generator().manual_seed(5)
+    p = init_params(moe.moe_spec(cfg), torch.float32, generator=gen,
+                    device="cpu")
+    p["router"] = (torch.randn(p["router"].shape, generator=gen)
+                   / cfg.d_model ** 0.5)
+    x = torch.randn(8, 128, cfg.d_model, generator=gen)
+    tied = (torch.randint(0, 4, (512, 64), generator=gen) / 4).float()
+    for k in (1, 6):
+        for a, b in zip(moe.top_k(tied.to(cuda), k), moe.top_k(tied, k)):
+            assert torch.equal(a.cpu(), b)
+    ids = moe.top_k(torch.softmax(x @ p["router"], -1), 6)[1]
+    got = moe._dispatch(cfg, ids.to(cuda))
+    want = moe._dispatch(cfg, ids)
+    assert not bool(want[3].all())                  # some tokens drop
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    pc = tree_map(lambda t: t.to(cuda), p)
+    with strict_fp32(), torch.inference_mode():
+        want = moe.apply_moe(cfg, p, x)
+        y = moe.apply_moe(cfg, pc, x.to(cuda))
+        p16 = tree_map(lambda t: t.to(torch.bfloat16), pc)
+        x16 = x.to(cuda, torch.bfloat16)
+        y16a = moe.apply_moe(cfg, p16, x16)
+        y16b = moe.apply_moe(cfg, p16, x16)
+    err = (y.cpu() - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-5
+    assert y16a.dtype == torch.bfloat16 and torch.equal(y16a, y16b)
+
+
+def test_moe_model_decode_matches_forward_on_card(cuda):
+    """fp32 on the card, deepseek-moe-16b at full width cut to 3 layers
+    (the dense prelude and two stacked MoE blocks) at the drop-free
+    capacity factor E / k: a decode step after a 16-token prefill
+    reproduces the teacher-forced logits (< 3e-3).  The card against the
+    CPU is held per layer by test_moe_layer_on_card_matches_cpu and, over
+    the full model's weights, by chip_smoke.py's phase 21."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import (Transformer, decode_step, forward,
+                                    init_params, model_spec)
+    cfg = get_arch("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, num_layers=3, capacity_factor=(
+        cfg.num_experts / cfg.experts_per_token))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    model = Transformer(cfg, init_params(model_spec(cfg), torch.float32,
+                                         generator=gen, device=cuda))
+    tok = torch.randint(0, cfg.vocab_size, (2, 32),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    with strict_fp32(), torch.inference_mode():
+        _, caches, _ = forward(cfg, model, {"tokens": tok[:, :16]},
+                               mode="prefill", cache_len=32)
+        dec, _ = decode_step(cfg, model, tok[:, 16], caches, 16)
+        full, _, _ = forward(cfg, model, {"tokens": tok})
+    ref = full[:, 16]
+    assert ((dec - ref).abs().max() / ref.abs().max()).item() < 3e-3

@@ -30,6 +30,7 @@ from repro_torch.serve.engine import (Engine, make_prefill_step,  # noqa: E402
                                       make_serve_step)
 
 DENSE = ("qwen3-1.7b", "qwen2.5-3b", "minitron-8b")
+LM = DENSE + ("deepseek-moe-16b",)
 BATCH, PROMPT, GEN = 3, 8, 10
 
 
@@ -46,7 +47,7 @@ def _jax_logits_along(cfg, params, prompts, out, steps):
     return np.stack(logits, axis=1)                     # (B, steps, V)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", LM)
 def test_greedy_tokens_match_jax_engine(name):
     cfg = JREDUCED[name]
     jp = jinit(jax.random.PRNGKey(3), jspec(cfg), jnp.float32)
@@ -140,3 +141,16 @@ def test_launch_serve_main(capsys, monkeypatch):
                        "--gen", "2"])
     assert asked == ["minitron-8b"]
     assert "[serve] minitron-8b: generated (1, 2)" in capsys.readouterr().out
+
+
+def test_launch_serve_runs_the_moe_arch(capsys):
+    """``--arch deepseek-moe-16b --reduced``: the MoE arch goes through
+    the launcher with no change but ``check_supported``'s."""
+    launch_serve.main(["--device", "cpu", "--arch", "deepseek-moe-16b",
+                       "--reduced", "--batch", "2", "--prompt-len", "6",
+                       "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] deepseek-moe-16b: generated (2, 4)" in out
+    first = out.split("first row: ")[1]
+    toks = [int(v) for v in first.strip()[1:-1].split(",")]
+    assert len(toks) == 4 and all(0 <= v < 512 for v in toks)

@@ -1,5 +1,8 @@
 """The port's LM modules (``repro_torch.configs``, ``repro_torch.models``)
-against the JAX package's on the CPU, in float32.
+against the JAX package's on the CPU, in float32: the dense archs and
+deepseek-moe-16b (MoE; its reduced config routes drop-free, capacity
+factor 8.0: ``tests/test_torch_moe.py`` holds the MoE layer where tokens
+drop).
 
 Inputs come from a numpy seed; JAX weights (``repro.models.init_params``)
 carry across through ``repro_torch.interop.params_from_numpy``.  Relative
@@ -38,6 +41,8 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
 DENSE = ("qwen3-1.7b", "qwen2.5-3b", "minitron-8b")
+MOE = ("deepseek-moe-16b",)
+LM = DENSE + MOE
 B, S = 2, 16
 
 
@@ -56,7 +61,7 @@ def t(a):
 def models():
     """name -> (cfg, JAX params, port Transformer), the reduced configs."""
     out = {}
-    for i, name in enumerate(DENSE):
+    for i, name in enumerate(LM):
         cfg = jreg.REDUCED[name]
         jp = JL.init_params(jax.random.PRNGKey(i), JT.model_spec(cfg),
                             jnp.float32)
@@ -93,7 +98,7 @@ def test_configs_are_copies():
 def test_model_spec_matches_jax():
     for name in jreg.REDUCED:
         cfg = treg.REDUCED[name]
-        if name not in DENSE:
+        if name not in LM:
             with pytest.raises(NotImplementedError, match="item 11"):
                 TT.model_spec(cfg)
             continue
@@ -246,7 +251,19 @@ def test_a_config_other_than_the_models_raises(models):
 
 # -- whole model -------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE)
+def jax_layer_caches(jc):
+    """The JAX package's prefill caches (prelude list, stacked body, tail
+    list) as one {"k", "v"} per layer in execution order, the port's
+    layout."""
+    body = jc.get("body") or []
+    n_rep = body[0]["k"].shape[0] if body else 0
+    return (list(jc.get("prelude", []))
+            + [{kv: u[kv][r] for kv in ("k", "v")} for r in range(n_rep)
+               for u in body]
+            + list(jc.get("tail", [])))
+
+
+@pytest.mark.parametrize("name", LM)
 def test_forward_matches_jax(models, name):
     cfg, jp, tm = models[name]
     tok = tokens(cfg, 5)
@@ -261,7 +278,7 @@ def test_forward_matches_jax(models, name):
     assert none is None and torch.equal(aux2["normed"], taux["normed"])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", LM)
 def test_prefill_then_decode_matches_jax(models, name):
     cfg, jp, tm = models[name]
     tok = tokens(cfg, 6)
@@ -271,8 +288,10 @@ def test_prefill_then_decode_matches_jax(models, name):
     _, tc, _ = TT.forward(tm.cfg, tm, {"tokens": t(tok[:, :half]).long()},
                           mode="prefill", cache_len=S)
     # the JAX body caches are stacked (n_rep, ...); the port's one per layer
+    want_layers = jax_layer_caches(jc)
+    assert len(want_layers) == len(tc) == cfg.num_layers
     for kv in ("k", "v"):
-        want = np.asarray(jc["body"][0][kv])
+        want = np.stack([np.asarray(c[kv]) for c in want_layers])
         got = torch.stack([c[kv] for c in tc])
         assert rel(got, want) <= 1e-4
     jd, jc = JT.decode_step(cfg, jp, jnp.asarray(tok[:, half]), jc, half)
@@ -285,7 +304,7 @@ def test_prefill_then_decode_matches_jax(models, name):
     assert rel(td2, jd2) <= 1e-4
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", LM)
 def test_bf16_matches_jax_bf16(models, name):
     """bf16 weights: logits, aux["normed"], the prefill caches and the
     decode-step logits come in JAX's dtypes and within the bf16 control
@@ -307,7 +326,7 @@ def test_bf16_matches_jax_bf16(models, name):
                              mode="prefill", cache_len=S)
         dec, _ = JT.decode_step(cfg, params, jnp.asarray(tok[:, half]), c,
                                 half)
-        return (lg, aux["normed"], dec), c["body"][0]["k"].dtype
+        return (lg, aux["normed"], dec), jax_layer_caches(c)[0]["k"].dtype
 
     (j16, cache_dt), (j32, _) = run_jax(jp16), run_jax(jp32)
     lg, _, aux = TT.forward(tm.cfg, tm, {"tokens": t(tok).long()})
@@ -324,7 +343,7 @@ def test_bf16_matches_jax_bf16(models, name):
         assert rel(got.float(), want16.astype(jnp.float32)) <= control, what
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", LM)
 def test_decode_matches_forward(models, name):
     """The port's decode with caches reproduces its teacher-forced
     logits (the JAX package's property)."""
@@ -340,15 +359,24 @@ def test_decode_matches_forward(models, name):
 
 
 def test_unported_archs_raise():
-    for name, cfg in treg.REDUCED.items():
-        if name in DENSE:
-            continue
-        with pytest.raises(NotImplementedError, match="item 11"):
+    unported = [n for n in treg.REDUCED if n not in LM]
+    assert len(unported) == 6
+    for name in unported:
+        cfg = treg.REDUCED[name]
+        with pytest.raises(NotImplementedError, match="item 11c"):
             TT.plan_segments(cfg)
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="item 11c"):
             TT.init_cache(cfg, 1, 4, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="item 11c"):
+            TT.check_supported(treg.get_arch(name))
+    with pytest.raises(NotImplementedError, match="item 11c"):
         TT.block_spec(treg.REDUCED["mamba2-780m"], "ssm")
+    # deepseek-v3 stays out for MLA and its MTP head, not for its experts
+    with pytest.raises(NotImplementedError,
+                       match=r"attn_type 'mla', mtp not ported"):
+        TT.check_supported(treg.get_arch("deepseek-v3-671b"))
+    for name in LM:
+        TT.check_supported(treg.get_arch(name))
 
 
 def test_params_from_numpy_checks_every_leaf(models):
@@ -376,3 +404,51 @@ def test_params_from_numpy_checks_every_leaf(models):
     bad["body"]["b0"]["ffn"]["w_up"] = bad["body"]["b0"]["ffn"]["w_up"][:1]
     with pytest.raises(ValueError, match="shape"):
         interop.params_from_numpy(cfg, bad, device="cpu")
+
+
+def test_params_from_numpy_takes_expert_leaves_apart(models):
+    """The MoE body's stacked expert weights (n_rep, E, d_in, d_out) become
+    one view per block, no copy; every leaf is counted once."""
+    cfg, jp, _ = models["deepseek-moe-16b"]
+    tree = jax.tree.map(np.asarray, jp)
+    tm = interop.params_from_numpy(cfg, tree, device="cpu")
+    body = tree["body"]["b0"]
+    n_rep = body["moe"]["w_gate"].shape[0]
+    assert n_rep == cfg.num_layers - cfg.first_dense_layers
+    assert body["moe"]["w_gate"].ndim == 4
+    n_leaves = len(jax.tree.leaves(tree))
+    stacked = len(jax.tree.leaves(tree["body"]))
+    assert len(list(tm.parameters())) == n_leaves - stacked + n_rep * stacked
+    assert tm.kinds == ["attn_dense"] + ["moe"] * n_rep
+    assert "ffn" in dict(tm.blocks[0].named_children())
+    for r in range(n_rep):
+        moe = tm.blocks[1 + r].moe
+        for name in ("w_gate", "w_up", "w_down"):
+            np.testing.assert_array_equal(moe[name].numpy(),
+                                          body["moe"][name][r])
+        assert (moe.w_gate.shape == (cfg.num_experts, cfg.d_model,
+                                     cfg.moe_d_ff))
+    # views of one stacked tensor: block r's slice starts r slices on
+    w0, w1 = tm.blocks[1].moe.w_gate, tm.blocks[2].moe.w_gate
+    assert w1.data_ptr() - w0.data_ptr() == w0.numel() * w0.element_size()
+    assert w0.untyped_storage().data_ptr() == w1.untyped_storage().data_ptr()
+
+
+def test_init_params_scales_in_place():
+    """init_params scales each float32 draw in place: the same values as
+    drawing and then scaling into a new tensor."""
+    cfg = treg.REDUCED["deepseek-moe-16b"]
+    spec = TT.model_spec(cfg)
+    tree = TL.init_params(spec, torch.bfloat16,
+                          generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    flat_spec, flat = [], []
+    TL.tree_map(flat_spec.append, spec)
+    TL.tree_map(flat.append, tree)
+    for sp, got in zip(flat_spec, flat, strict=True):
+        if sp.init != "normal":
+            continue
+        scale = sp.scale or 1.0 / np.sqrt(max(sp.shape[0], 1))
+        z = torch.randn(sp.shape, generator=gen, dtype=torch.float32)
+        assert torch.equal(got, (scale * z).to(torch.bfloat16)), sp
