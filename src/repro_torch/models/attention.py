@@ -1,4 +1,6 @@
-"""GQA attention block (+qk-norm, qkv-bias, local windows) in PyTorch.
+"""Attention blocks in PyTorch: GQA (+qk-norm, qkv-bias, local windows)
+and MLA (DeepSeek-style multi-head latent attention with a compressed KV
+cache and the absorbed decode path).
 
 Layouts: x (B, S, D); q (B, S, H, hd); kv (B, S, K, hd).  The attention
 itself is plain PyTorch: the scores come in float32 from the storage-dtype
@@ -7,7 +9,10 @@ with ``NEG`` and normalised in float32.  The JAX package's online-softmax
 chunking keeps (S, S) scores out of HBM at 32k tokens; the port's prompts
 are short, so one block of scores per call.
 
-Not here (ROADMAP.md item 11c): MLA and M-RoPE.
+A decode write past the cache raises (the reference's
+``dynamic_update_slice`` clamps).
+
+Not here (ROADMAP.md item 11c-iv): M-RoPE.
 """
 from __future__ import annotations
 
@@ -98,7 +103,7 @@ def _project_qkv(cfg, p, x):
 def _rope_qk(cfg, q, k, pos):
     if cfg.m_rope_sections:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md "
-                                  "item 11c)")
+                                  "item 11c-iv)")
     return (apply_rope(q, pos, cfg.rope_theta),
             apply_rope(k, pos, cfg.rope_theta))
 
@@ -161,3 +166,118 @@ def gqa_decode(cfg, p, x, cache, pos: int, *, window=None):
                        vc.to(torch.float32))
     y = ctx.reshape(b, 1, h * hd).to(x.dtype) @ p["w_o"]
     return y, {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V3 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def mla_spec(cfg):
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "w_dq": ParamSpec((d, ql), ("embed", "lora")),
+        "q_norm": ParamSpec((ql,), ("null",), "zeros"),
+        "w_uq": ParamSpec((ql, h * (nope + rope_d)), ("lora", "heads")),
+        "w_dkv": ParamSpec((d, kvl + rope_d), ("embed", "lora")),
+        "kv_norm": ParamSpec((kvl,), ("null",), "zeros"),
+        "w_uk": ParamSpec((kvl, h * nope), ("lora", "heads")),
+        "w_uv": ParamSpec((kvl, h * vd), ("lora", "heads")),
+        "w_o": ParamSpec((h * vd, d), ("heads", "embed")),
+    }
+
+
+def _mla_q(cfg, p, x):
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, h, nope + rope_d)
+    return q[..., :nope], q[..., nope:]
+
+
+def _mla_kv_low(cfg, p, x):
+    kvl = cfg.kv_lora_rank
+    low = x @ p["w_dkv"]
+    c_kv = rms_norm(low[..., :kvl], p["kv_norm"], cfg.norm_eps)
+    return c_kv, low[..., kvl:]
+
+
+def mla_forward(cfg, p, x, pos, *, make_cache=False, cache_len: int = 0):
+    """Train / prefill.  pos: (B, S) int.  Keys and values are expanded
+    from the latent per head; the scale is 1/sqrt(nope + rope).  With
+    make_cache the cache holds the latent {"c_kv": (B, cache_len,
+    kv_lora), "k_pe": (B, cache_len, rope)}, positions 0..S-1 filled.
+
+    The reference pads v up to the qk width for its flash kernel and
+    slices the output back; ``attention`` takes v at its own width, and
+    the zero columns change no sum."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_pe = _mla_q(cfg, p, x)
+    c_kv, k_pe = _mla_kv_low(cfg, p, x)
+    q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
+    k_pe = apply_rope(k_pe[:, :, None, :], pos, cfg.rope_theta)  # (B,S,1,r)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, nope)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, vd)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(b, s, h, rope_d)], dim=-1)
+    out = attention(q, k, v)                              # (B, S, H, vd)
+    y = out.reshape(b, s, h * vd) @ p["w_o"]
+    cache = None
+    if make_cache:
+        if s > cache_len:
+            raise ValueError(f"prefill of {s} positions past the cache's "
+                             f"{cache_len} slots")
+        ckv_c = x.new_zeros((b, cache_len, cfg.kv_lora_rank))
+        kpe_c = x.new_zeros((b, cache_len, rope_d))
+        ckv_c[:, :s] = c_kv
+        kpe_c[:, :s] = k_pe[:, :, 0, :]
+        cache = {"c_kv": ckv_c, "k_pe": kpe_c}
+    return y, cache
+
+
+def mla_decode(cfg, p, x, cache, pos: int):
+    """Absorbed one-token decode: W_uk folds into the query and W_uv into
+    the output, so the step reads only the latent cache, O(T * (kv_lora +
+    rope)) per head.  x: (B, 1, D); pos: the position written (a Python
+    int).  Every cast of the reference is kept: the absorbed query, the
+    attention weights and the latent context round to the cache's (or
+    W_uv's) dtype before their products, which in bf16 is part of the
+    result.  Returns (y, cache), the cache updated in place."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvl = cfg.kv_lora_rank
+    f32 = torch.float32
+    q_nope, q_pe = _mla_q(cfg, p, x)           # (B,1,H,*)
+    c_kv_t, k_pe_t = _mla_kv_low(cfg, p, x)    # (B,1,kvl), (B,1,r)
+    posv = torch.full((b, 1), pos, device=x.device)
+    q_pe = apply_rope(q_pe, posv, cfg.rope_theta)
+    k_pe_t = apply_rope(k_pe_t[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
+    ckv_c, kpe_c = cache["c_kv"], cache["k_pe"]
+    slots = ckv_c.shape[1]
+    if not 0 <= pos < slots:
+        raise ValueError(f"decode position {pos} past the cache's {slots} "
+                         f"slots")
+    ckv_c[:, pos] = c_kv_t[:, 0]
+    kpe_c[:, pos] = k_pe_t[:, 0]
+
+    ckv = ckv_c.to(f32)
+    w_uk = p["w_uk"].reshape(kvl, h, nope)
+    q_low = torch.einsum("bhn,lhn->bhl", q_nope[:, 0].to(f32),
+                         w_uk.to(f32))                     # (B, H, kvl)
+    s_low = torch.einsum("bhl,bsl->bhs", q_low.to(ckv_c.dtype).to(f32), ckv)
+    s_pe = torch.einsum("bhr,bsr->bhs", q_pe[:, 0].to(f32), kpe_c.to(f32))
+    scores = (s_low + s_pe) / math.sqrt(nope + rope_d)
+    valid = torch.arange(slots, device=x.device) <= pos
+    scores = torch.where(valid[None, None, :], scores, NEG)
+    attn = torch.softmax(scores, dim=-1).to(ckv_c.dtype)
+    ctx_low = torch.einsum("bhs,bsl->bhl", attn.to(f32), ckv)
+    w_uv = p["w_uv"].reshape(kvl, h, vd)
+    ctx = torch.einsum("bhl,lhv->bhv", ctx_low.to(w_uv.dtype).to(f32),
+                       w_uv.to(f32))
+    y = ctx.reshape(b, 1, h * vd).to(x.dtype) @ p["w_o"]
+    return y, {"c_kv": ckv_c, "k_pe": kpe_c}

@@ -7,8 +7,8 @@ package's: a projection is ``x @ w`` with w of shape (d_in, d_out), so
 weights carry across without transposes.
 
 Not here: the activation and MoE sharding helpers (GSPMD layout hints,
-with no single-device counterpart), M-RoPE (ROADMAP.md item 11c) and the
-losses (item 11b).
+with no single-device counterpart), M-RoPE (ROADMAP.md item 11c-iv) and
+the losses (item 11b).
 """
 from __future__ import annotations
 
@@ -16,7 +16,6 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +57,8 @@ def init_params(struct, dtype, *, generator: torch.Generator, device):
 
     The distributions are the JAX package's: "normal" draws N(0, scale^2)
     in float32 (scale defaults to 1/sqrt(fan_in), fan_in the first dim of
-    a matrix) and then casts to dtype; "zeros" and "ones" are constant.
+    a matrix) and then casts to dtype; "zeros" and "ones" are constant;
+    "rglru_lambda" is logit(u), u uniform on (0.9, 0.999) in float32.
     The draws come from ``generator`` (on its own device), leaf by leaf in
     the tree's sorted-key order; they cannot match ``jax.random``'s.
     """
@@ -69,10 +69,14 @@ def init_params(struct, dtype, *, generator: torch.Generator, device):
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=device)
+        if spec.init == "rglru_lambda":
+            # Lambda such that a = sigmoid(Lambda) lies in (0.9, 0.999)
+            u = torch.rand(spec.shape, generator=generator,
+                           dtype=torch.float32, device=generator.device)
+            u = u.mul_(0.999 - 0.9).add_(0.9)
+            return torch.log(u / (1 - u)).to(device=device, dtype=dtype)
         if spec.init != "normal":
-            raise NotImplementedError(
-                f"init {spec.init!r} belongs to a block kind the port does "
-                f"not run yet (ROADMAP.md item 11c)")
+            raise ValueError(f"unknown init {spec.init!r}")
         scale = spec.scale
         if scale is None:
             fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
@@ -157,10 +161,30 @@ def ffn_spec(cfg, d_in: int, d_hidden: int):
     return s
 
 
+def _in_dtype(c: float, dtype) -> float:
+    """c rounded to dtype (the constant as the reference's jaxpr holds
+    it), as a Python float."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
+def silu(x):
+    """``jax.nn.silu`` step for step: x * 1 / (1 + exp(-x)) (XLA's
+    expansion of the logistic), each step rounded to x's dtype.  In bf16,
+    ``F.silu``'s single rounding differs from it in ~40% of elements."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu`` (the tanh approximation) step for step, with its
+    constants rounded to x's dtype; in bf16 ``F.gelu(approximate="tanh")``
+    differs from it in ~40% of elements."""
+    c1 = _in_dtype(0.044715, x.dtype)
+    c2 = _in_dtype(math.sqrt(2 / math.pi), x.dtype)
+    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
+
+
 def _act(cfg, x):
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.silu(x) if cfg.mlp_act == "silu" else F.gelu(x,
-                                                          approximate="tanh")
+    return silu(x) if cfg.mlp_act == "silu" else gelu_tanh(x)
 
 
 def apply_ffn(cfg, p, x):

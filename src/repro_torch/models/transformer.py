@@ -1,5 +1,6 @@
 """Model assembly: block definitions, forward (train / prefill) and
-single-token decode with KV caches, for GQA transformers, dense or MoE.
+single-token decode with caches, for the token-input families: GQA or
+MLA transformers, dense or MoE, and the recurrent hybrids.
 
 The parameter tree is the JAX package's (``model_spec``): homogeneous runs
 of the layer pattern are stacked under ``body`` with a leading (n_rep,)
@@ -9,17 +10,22 @@ order (prelude, body repeats, tail), the stacked tensors taken apart into
 one block each; the names (``ln1.gamma``, ``attn.w_q``, ...) and the
 layouts (``x @ w``, w of shape (d_in, d_out)) are the JAX package's.
 
-Caches are a list with one {"k", "v"} dict per layer, in the blocks'
-order (the JAX package stacks the body's).
+Caches are a list with one dict per layer, in the blocks' order (the JAX
+package stacks the body's): {"k", "v"} for a GQA block (a ring of
+``window`` slots for a windowed one), {"c_kv", "k_pe"} for MLA, {"h",
+"conv"} for ``rec`` and {"h", "conv_x", "conv_bc"} for ``ssm``.
 
 Block kinds: attn / attn_dense — (pre-norm attention) + (pre-norm dense
 FFN); moe — (pre-norm attention) + (pre-norm MoE FFN, ``moe.apply_moe``),
-after the dense prelude of ``first_dense_layers``.  The stacked body's
-expert weights, (n_rep, E, d_in, d_out), are taken apart into per-block
-views like every other stacked leaf.  Everything else raises
-``NotImplementedError`` (ROADMAP.md item 11c): RG-LRU and SSM blocks, MLA,
-M-RoPE, embedding inputs, the audio family's positions and the MTP head.
-Training and its losses are item 11b.
+after the dense prelude of ``first_dense_layers``; rec — (pre-norm RG-LRU
+recurrent block, ``rglru``) + (pre-norm FFN); ssm — pre-norm Mamba-2 mixer
+(``ssm``), no separate FFN.  Attention is GQA or MLA (``attn_type``).  The
+stacked body's expert weights, (n_rep, E, d_in, d_out), are taken apart
+into per-block views like every other stacked leaf.  deepseek-v3's MTP
+head is held as ``Transformer.mtp`` (its leaves carried) and read by no
+function here, as in the reference's forward and decode; its loss is item
+11b.  M-RoPE, embedding inputs and the audio family's positions raise
+``NotImplementedError`` (ROADMAP.md item 11c-iv).
 """
 from __future__ import annotations
 
@@ -31,51 +37,58 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import (ParamSpec, apply_ffn, apply_norm,
                                        ffn_spec, is_spec, norm_spec,
                                        stack_specs, tree_map)
 from repro_torch.utils.device import resolve_device
 
 ATTN_KINDS = ("attn", "attn_dense", "moe")
+KINDS = ATTN_KINDS + ("rec", "ssm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for any feature outside this slice."""
+    """Raise NotImplementedError for any feature outside the port."""
     unsupported = []
     if cfg.family == "audio":
         unsupported.append("family 'audio'")
     if cfg.input_mode != "tokens":
         unsupported.append(f"input_mode {cfg.input_mode!r}")
-    if cfg.attn_type != "gqa":
-        unsupported.append(f"attn_type {cfg.attn_type!r}")
     if cfg.m_rope_sections:
         unsupported.append("m_rope_sections")
-    if cfg.mtp:
-        unsupported.append("mtp")
-    kinds = sorted(set(cfg.layer_kinds) - set(ATTN_KINDS))
+    kinds = sorted(set(cfg.layer_kinds) - set(KINDS))
     unsupported += [f"block kind {k!r}" for k in kinds]
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet: the port "
-            f"runs GQA transformers, dense or MoE (ROADMAP.md item 11c)")
+            f"{cfg.name}: {', '.join(unsupported)} not ported yet "
+            f"(ROADMAP.md item 11c-iv)")
 
 
 # ---------------------------------------------------------------------------
 # block spec / apply
 # ---------------------------------------------------------------------------
 
+def _attn_spec(cfg):
+    return attn.mla_spec(cfg) if cfg.attn_type == "mla" else attn.gqa_spec(cfg)
+
+
 def block_spec(cfg: ArchConfig, kind: str):
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"(ROADMAP.md item 11c)")
     d = cfg.d_model
-    s = {"ln1": norm_spec(cfg, d), "attn": attn.gqa_spec(cfg),
-         "ln2": norm_spec(cfg, d)}
-    if kind == "moe":
-        s["moe"] = moe_mod.moe_spec(cfg)
-    else:
-        s["ffn"] = ffn_spec(cfg, d, cfg.d_ff)
-    return s
+    if kind in ATTN_KINDS:
+        s = {"ln1": norm_spec(cfg, d), "attn": _attn_spec(cfg),
+             "ln2": norm_spec(cfg, d)}
+        if kind == "moe":
+            s["moe"] = moe_mod.moe_spec(cfg)
+        else:
+            s["ffn"] = ffn_spec(cfg, d, cfg.d_ff)
+        return s
+    if kind == "rec":
+        return {"ln1": norm_spec(cfg, d), "rec": rglru.rglru_spec(cfg),
+                "ln2": norm_spec(cfg, d),
+                "ffn": ffn_spec(cfg, d, cfg.d_ff)}
+    if kind == "ssm":
+        return {"ln1": norm_spec(cfg, d), "ssm": ssm.ssm_spec(cfg)}
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _attn_window(cfg, kind):
@@ -83,18 +96,41 @@ def _attn_window(cfg, kind):
     return cfg.window if kind == "attn" and cfg.window else None
 
 
+def _apply_attn(cfg, kind, p, h_in, pos, mode, cache, cache_len):
+    prefill = mode == "prefill"
+    if cfg.attn_type == "mla":
+        if mode == "decode":
+            return attn.mla_decode(cfg, p, h_in, cache, pos)
+        return attn.mla_forward(cfg, p, h_in, pos, make_cache=prefill,
+                                cache_len=cache_len)
+    window = _attn_window(cfg, kind)
+    if mode == "decode":
+        return attn.gqa_decode(cfg, p, h_in, cache, pos, window=window)
+    return attn.gqa_forward(cfg, p, h_in, pos, window=window,
+                            make_cache=prefill, cache_len=cache_len)
+
+
 def apply_block(cfg, kind, p, x, pos, *, mode: str, cache=None,
                 cache_len: int = 0):
     """mode: train | prefill | decode.  Returns (x, new_cache)."""
-    window = _attn_window(cfg, kind)
     h_in = apply_norm(cfg, p["ln1"], x)
-    if mode == "decode":
-        h, new_cache = attn.gqa_decode(cfg, p["attn"], h_in, cache, pos,
-                                       window=window)
+    prefill = mode == "prefill"
+    if kind == "ssm":
+        if mode == "decode":
+            h, new_cache = ssm.ssm_decode(cfg, p["ssm"], h_in, cache)
+        else:
+            h, new_cache = ssm.ssm_forward(cfg, p["ssm"], h_in,
+                                           make_cache=prefill)
+        return x + h, new_cache
+    if kind == "rec":
+        if mode == "decode":
+            h, new_cache = rglru.rglru_decode(cfg, p["rec"], h_in, cache)
+        else:
+            h, new_cache = rglru.rglru_forward(cfg, p["rec"], h_in,
+                                               make_cache=prefill)
     else:
-        h, new_cache = attn.gqa_forward(
-            cfg, p["attn"], h_in, pos, window=window,
-            make_cache=(mode == "prefill"), cache_len=cache_len)
+        h, new_cache = _apply_attn(cfg, kind, p["attn"], h_in, pos, mode,
+                                   cache, cache_len)
     x = x + h
     h2 = apply_norm(cfg, p["ln2"], x)
     if kind == "moe":
@@ -106,12 +142,20 @@ def apply_block(cfg, kind, p, x, pos, *, mode: str, cache=None,
 
 def init_block_cache(cfg, kind, batch: int, cache_len: int, dtype,
                      device="cuda"):
-    """One layer's {"k", "v"} cache, zeros on ``device`` (default the
-    card; a missing card raises)."""
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"(ROADMAP.md item 11c)")
+    """One layer's cache, zeros on ``device`` (default the card; a missing
+    card raises)."""
     device = resolve_device(device)
+    if kind == "rec":
+        return rglru.rglru_init_cache(cfg, batch, dtype, device)
+    if kind == "ssm":
+        return ssm.ssm_init_cache(cfg, batch, dtype, device)
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.attn_type == "mla":
+        return {"c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_pe": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                                    dtype=dtype, device=device)}
     window = _attn_window(cfg, kind)
     alloc = min(window, cache_len) if window else cache_len
     shape = (batch, alloc, cfg.num_kv_heads, cfg.head_dim)
@@ -161,6 +205,14 @@ def model_spec(cfg: ArchConfig):
         spec["body"] = stack_specs(unit_spec, n_rep)
     if tail:
         spec["tail"] = [block_spec(cfg, k) for k in tail]
+    if cfg.mtp:
+        spec["mtp"] = {
+            "proj": ParamSpec((2 * d, d), ("embed", "embed2")),
+            "norm_h": norm_spec(cfg, d),
+            "norm_e": norm_spec(cfg, d),
+            "block": block_spec(cfg, cfg.block_pattern[-1]),
+            "final_norm": norm_spec(cfg, d),
+        }
     return spec
 
 
@@ -206,11 +258,12 @@ class ParamTree(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A GQA LM, dense or MoE, holding a ``model_spec`` parameter tree.
+    """An LM holding a ``model_spec`` parameter tree.
 
     params: the tree of tensors in the spec's structure (``match_tree``),
     ``body`` stacked.  Each block's parameters are views of the stacked
-    tensors (no copy) unless dtype or device asks for a conversion.
+    tensors (no copy) unless dtype or device asks for a conversion.  The
+    MTP head, where the config has one, is ``self.mtp``.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, dtype=None, device=None):
@@ -232,6 +285,7 @@ class Transformer(nn.Module):
                        for i in range(len(unit))]
         blocks += [ParamTree(p) for p in tree.get("tail", [])]
         self.blocks = nn.ModuleList(blocks)
+        self.mtp = ParamTree(tree["mtp"]) if "mtp" in tree else None
 
 
 def check_model(cfg: ArchConfig, model: Transformer) -> None:
@@ -269,7 +323,9 @@ def forward(cfg: ArchConfig, model: Transformer, batch, *,
             mode: str = "train", cache_len: int = 0,
             return_logits: bool = True):
     """Returns (logits, caches, aux); caches is None unless mode is
-    "prefill" (then one {"k", "v"} per layer, cache_len slots each).
+    "prefill" (then one per layer, in ``init_cache``'s layout: cache_len
+    slots for an attention cache, the state after the last position for a
+    recurrent one).
     aux: {"hidden": the last block's output, "normed": after the final
     norm}."""
     if mode not in ("train", "prefill"):
@@ -292,8 +348,8 @@ def forward(cfg: ArchConfig, model: Transformer, batch, *,
 def decode_step(cfg: ArchConfig, model: Transformer, inputs, caches,
                 pos: int):
     """One decode step.  inputs: tokens (B,); pos: the position written
-    (a Python int).  Returns (logits (B, V), caches), the caches updated
-    in place."""
+    (a Python int).  Returns (logits (B, V), caches): the attention
+    caches updated in place, each recurrent layer's state a new dict."""
     check_model(cfg, model)
     x = model.embed[inputs][:, None, :]              # (B, 1, D)
     new_caches = []
@@ -307,8 +363,8 @@ def decode_step(cfg: ArchConfig, model: Transformer, inputs, caches,
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
                device="cuda"):
-    """One {"k", "v"} cache per layer, in the blocks' order, on ``device``
-    (default the card; a missing card raises)."""
+    """One cache per layer, in the blocks' order (module docstring), on
+    ``device`` (default the card; a missing card raises)."""
     kinds = layer_kinds(cfg)
     device = resolve_device(device)
     return [init_block_cache(cfg, k, batch, cache_len, dtype, device)

@@ -30,7 +30,11 @@ from repro_torch.serve.engine import (Engine, make_prefill_step,  # noqa: E402
                                       make_serve_step)
 
 DENSE = ("qwen3-1.7b", "qwen2.5-3b", "minitron-8b")
-LM = DENSE + ("deepseek-moe-16b",)
+# MLA (minicpm3-4b, deepseek-v3-671b) and the recurrent archs: with
+# PROMPT + GEN = 18 the reduced recurrentgemma-2b's window of 16 wraps its
+# attention layers' ring during decode
+NEW = ("minicpm3-4b", "deepseek-v3-671b", "recurrentgemma-2b", "mamba2-780m")
+LM = DENSE + ("deepseek-moe-16b",) + NEW
 BATCH, PROMPT, GEN = 3, 8, 10
 
 
@@ -153,4 +157,16 @@ def test_launch_serve_runs_the_moe_arch(capsys):
     assert "[serve] deepseek-moe-16b: generated (2, 4)" in out
     first = out.split("first row: ")[1]
     toks = [int(v) for v in first.strip()[1:-1].split(",")]
+    assert len(toks) == 4 and all(0 <= v < 512 for v in toks)
+
+
+@pytest.mark.parametrize("name", NEW)
+def test_launch_serve_runs_the_new_families(capsys, name):
+    """MLA and the recurrent archs go through the launcher unchanged."""
+    launch_serve.main(["--device", "cpu", "--arch", name, "--batch", "2",
+                       "--prompt-len", "6", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert f"[serve] {name}: generated (2, 4)" in out
+    toks = [int(v) for v in out.split("first row: ")[1].strip()[1:-1]
+            .split(",")]
     assert len(toks) == 4 and all(0 <= v < 512 for v in toks)

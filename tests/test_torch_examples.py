@@ -8,7 +8,9 @@ replacement), so the small run takes ``--d 64``.  ``serve_lm`` and
 ``al_data_curation`` run at the JAX examples' defaults, as do the four
 serving walkthroughs (``quickstart``, ``serve_index``, ``serve_async``,
 ``refresh_loop``), whose own assertions are the JAX examples'; ``serve_lm``
-also runs the MoE arch (reduced deepseek-moe-16b).
+also runs the MoE arch (reduced deepseek-moe-16b), the MLA archs
+(minicpm3-4b, deepseek-v3-671b) and the recurrent ones (recurrentgemma-2b,
+mamba2-780m).
 """
 import os
 import re
@@ -140,6 +142,23 @@ def test_serving_example_runs_on_cpu(name):
     proc = _run_example(name, *args)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [ln for ln in proc.stdout.strip().splitlines() if ln]
+    assert len(lines) == len(patterns), lines
+    for line, pat in zip(lines, patterns):
+        assert re.fullmatch(pat, line), (pat, line)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v3-671b",
+                                  "recurrentgemma-2b", "mamba2-780m"])
+def test_serve_lm_runs_each_new_family(arch):
+    """``serve_lm --arch`` for MLA and the recurrent blocks, at the JAX
+    example's defaults (batch 8, 32-token prompts, 48 generated)."""
+    proc = _run_example("serve_lm", "--arch", arch)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [ln for ln in proc.stdout.strip().splitlines() if ln]
+    patterns = [rf"{arch}: batch=8 gen=48",
+                r"first call: \d+\.\d\ds; steady: \d+\.\d\ds = \d+ tok/s "
+                r"on cpu",
+                r"sample: \[(\d+, ){11}\d+\]"]
     assert len(lines) == len(patterns), lines
     for line, pat in zip(lines, patterns):
         assert re.fullmatch(pat, line), (pat, line)

@@ -42,6 +42,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/models/layers.py",
             "src/repro_torch/models/attention.py",
             "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/rglru.py",
+            "src/repro_torch/models/ssm.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/examples/serve_lm.py",

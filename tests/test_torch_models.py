@@ -1,24 +1,42 @@
 """The port's LM modules (``repro_torch.configs``, ``repro_torch.models``)
-against the JAX package's on the CPU, in float32: the dense archs and
+against the JAX package's on the CPU, in float32: the dense GQA archs,
 deepseek-moe-16b (MoE; its reduced config routes drop-free, capacity
 factor 8.0: ``tests/test_torch_moe.py`` holds the MoE layer where tokens
-drop).
+drop), the MLA archs minicpm3-4b and deepseek-v3-671b (MLA, the sigmoid
+router, the MTP head's leaves carried) and the recurrent archs
+recurrentgemma-2b (RG-LRU + windowed attention) and mamba2-780m (SSD);
+``tests/test_torch_recurrent.py`` holds the recurrent blocks alone.
 
 Inputs come from a numpy seed; JAX weights (``repro.models.init_params``)
 carry across through ``repro_torch.interop.params_from_numpy``.  Relative
 error is max|port - jax| / max|jax| throughout.  Tolerances:
 - layer primitives and the attention block: 1e-5 (a few float32 ulp of
   reduction-order difference between torch and XLA);
-- whole-model logits, ``aux["normed"]`` and decode-step logits: 1e-4
-  (the same differences carried through every layer);
+- whole-model logits, ``aux["normed"]``, decode-step logits and the
+  prefill caches: 1e-4 (the same differences carried through every
+  layer).  For an arch with RG-LRU blocks (recurrentgemma-2b) each output
+  takes the larger of 1e-4 and the reference's own one-ulp sensitivity
+  (``jax_and_tols``): how far JAX's output moves when every a_t of its
+  RG-LRU gates moves one float32 ulp toward 0.  At the reference init's
+  activations sqrt(1 - a^2) keeps no relative precision where a lies
+  within an ulp of 1, XLA's and torch's float32 ``exp`` differ by an ulp
+  in ~6% of elements, and the JAX package and the port then lie about
+  equally far from a float64 evaluation (``tests/test_torch_recurrent.py::
+  test_rglru_gate_conditioning_at_model_activations``);
 - the port's decode step against its own teacher-forced forward: 3e-3,
   the bound of the JAX package's ``tests/test_models_smoke.py``;
 - bf16 (the same bf16 weights on both sides): the port's answer must lie
   nearer JAX's bf16 answer than JAX's bf16 answer lies to JAX's float32
-  one over those weights (the lower-precision control; the port sits at
-  0.14-0.81 of it for these archs and seeds, a rounding step moved or
-  dropped takes it past 1).
+  one over those weights (the lower-precision control).  The JAX side
+  runs op by op (``jax.disable_jit``), each ``astype`` and bf16 step
+  rounding as its code says: compiled, XLA fuses a layer and drops some
+  of those roundings (minicpm3-4b's decode logits move by 0.0088 between
+  JAX's own compiled and op-by-op runs, past the 0.0076 control).  The
+  port follows the op-by-op roundings (its silu and gelu too) and sits
+  at 0-0.55 of the control for these archs and seeds; a rounding step
+  moved or dropped takes it past 1.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -32,6 +50,7 @@ from repro.configs import base as jbase  # noqa: E402
 from repro.configs import registry as jreg  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro.models import rglru as JR  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
@@ -42,8 +61,43 @@ from repro_torch.models import transformer as TT  # noqa: E402
 
 DENSE = ("qwen3-1.7b", "qwen2.5-3b", "minitron-8b")
 MOE = ("deepseek-moe-16b",)
-LM = DENSE + MOE
+MLA = ("minicpm3-4b", "deepseek-v3-671b")
+RECURRENT = ("recurrentgemma-2b", "mamba2-780m")
+LM = DENSE + MOE + MLA + RECURRENT
 B, S = 2, 16
+
+
+@contextlib.contextmanager
+def gates_one_ulp_down():
+    """JAX's RG-LRU gates with every a_t one float32 ulp nearer 0 (the
+    reference's ``_gates`` otherwise)."""
+    def nudged(p, xc):
+        r_t = jax.nn.sigmoid(JR._block_diag_matmul(xc, p["w_a"]) + p["b_a"])
+        i_t = jax.nn.sigmoid(JR._block_diag_matmul(xc, p["w_x"]) + p["b_x"])
+        log_a = JR._C * r_t * jax.nn.log_sigmoid(
+            p["lam"].astype(jnp.float32))
+        a = jnp.nextafter(jnp.exp(log_a), jnp.float32(0))
+        gated = jnp.sqrt(jnp.maximum(1.0 - a * a, 1e-12)) * (i_t * xc)
+        return a, gated
+
+    real = JR._gates
+    JR._gates = nudged
+    try:
+        yield
+    finally:
+        JR._gates = real
+
+
+def jax_and_tols(cfg, run):
+    """(outs, tols): run()'s list of JAX arrays, and each one's tolerance
+    (module docstring): 1e-4, or with RG-LRU blocks the larger of 1e-4 and
+    how far the output moves under ``gates_one_ulp_down``."""
+    outs = [np.asarray(o) for o in run()]
+    if "rec" not in cfg.block_pattern:
+        return outs, [1e-4] * len(outs)
+    with gates_one_ulp_down():
+        moved = [np.asarray(o) for o in run()]
+    return outs, [max(1e-4, rel(m, o)) for m, o in zip(moved, outs)]
 
 
 def rel(got, want) -> float:
@@ -225,6 +279,154 @@ def test_gqa_decode(models, name, window):
         assert rel(tc["k"], jc["k"]) <= 1e-5
 
 
+@pytest.mark.parametrize("name", MLA)
+def test_mla_forward_and_prefill_cache(models, name):
+    """MLA prefill: the output and the latent cache {"c_kv", "k_pe"},
+    positions 0..S-1 filled and the rest zero."""
+    cfg, jp, _ = models[name]
+    rng = np.random.default_rng(13)
+    p = {k: np.asarray(v[0]) for k, v in jp["body"]["b0"]["attn"].items()}
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S)).copy()
+    jy, jc = JA.mla_forward(cfg, p, x, pos, make_cache=True,
+                            cache_len=S + 4)
+    ty, tc = TA.mla_forward(cfg, {k: t(v) for k, v in p.items()}, t(x),
+                            t(pos), make_cache=True, cache_len=S + 4)
+    assert rel(ty, jy) <= 1e-5
+    assert sorted(tc) == ["c_kv", "k_pe"]
+    assert tc["c_kv"].shape == (B, S + 4, cfg.kv_lora_rank)
+    for k in ("c_kv", "k_pe"):
+        assert rel(tc[k], jc[k]) <= 1e-5
+        assert not tc[k][:, S:].any()
+    with pytest.raises(ValueError, match="past the cache"):
+        TA.mla_forward(cfg, {k: t(v) for k, v in p.items()}, t(x), t(pos),
+                       make_cache=True, cache_len=S - 1)
+
+
+@pytest.mark.parametrize("name", MLA)
+def test_mla_decode(models, name):
+    """The absorbed decode, several steps from a prefill cache, against
+    JAX's; then against the port's own prefill at each position (the
+    absorbed and expanded forms agree in float32)."""
+    cfg, jp, _ = models[name]
+    rng = np.random.default_rng(14)
+    p = {k: np.asarray(v[1]) for k, v in jp["body"]["b0"]["attn"].items()}
+    tp = {k: t(v) for k, v in p.items()}
+    s0, cache_len = 5, 12
+    x = rng.normal(size=(B, cache_len, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(cache_len), (B, cache_len)).copy()
+    _, jc = JA.mla_forward(cfg, p, x[:, :s0], pos[:, :s0], make_cache=True,
+                           cache_len=cache_len)
+    _, tc = TA.mla_forward(cfg, tp, t(x[:, :s0]), t(pos[:, :s0]),
+                           make_cache=True, cache_len=cache_len)
+    full, _ = TA.mla_forward(cfg, tp, t(x), t(pos))
+    for i in range(s0, cache_len):
+        jy, jc = JA.mla_decode(cfg, p, x[:, i:i + 1], jc, i)
+        ty, tc = TA.mla_decode(cfg, tp, t(x[:, i:i + 1]), tc, i)
+        assert rel(ty, jy) <= 1e-5, i
+        for k in ("c_kv", "k_pe"):
+            assert rel(tc[k], jc[k]) <= 1e-5, (i, k)
+        assert rel(ty, full[:, i:i + 1].numpy()) <= 1e-5, i
+    with pytest.raises(ValueError, match="past the cache"):
+        TA.mla_decode(cfg, tp, t(x[:, :1]), tc, cache_len)
+
+
+def test_mla_decode_keeps_the_reference_bf16_casts(models):
+    """bf16 weights and cache: the absorbed query, the attention weights
+    and the latent context round where the reference rounds them, so the
+    decode output lies nearer JAX's bf16 output than that lies to JAX's
+    float32 one (the lower-precision control), and far nearer than a
+    version that skips those roundings."""
+    cfg, jp, _ = models["deepseek-v3-671b"]
+    rng = np.random.default_rng(15)
+    p16 = {k: jnp.asarray(np.asarray(v[0]), jnp.bfloat16)
+           for k, v in jp["body"]["b0"]["attn"].items()}
+    p32 = {k: v.astype(jnp.float32) for k, v in p16.items()}
+    x = jnp.asarray(rng.normal(size=(B, 9, cfg.d_model)), jnp.bfloat16)
+    pos = np.broadcast_to(np.arange(8), (B, 8)).copy()
+
+    def jax_run(params, xx):
+        _, c = JA.mla_forward(cfg, params, xx[:, :8], pos, make_cache=True,
+                              cache_len=9)
+        return JA.mla_decode(cfg, params, xx[:, 8:], c, 8)[0]
+
+    want16 = np.asarray(jax_run(p16, x).astype(jnp.float32))
+    want32 = np.asarray(jax_run(p32, x.astype(jnp.float32)))
+    tp = {k: t(np.asarray(v, np.float32)).to(torch.bfloat16)
+          for k, v in p16.items()}
+    tx = t(np.asarray(x, np.float32)).to(torch.bfloat16)
+    _, tc = TA.mla_forward(cfg, tp, tx[:, :8], t(pos), make_cache=True,
+                           cache_len=9)
+    got, _ = TA.mla_decode(cfg, tp, tx[:, 8:], tc, 8)
+    assert got.dtype == torch.bfloat16
+    assert rel(got.float(), want16) <= rel(want16, want32)
+
+
+def test_recurrentgemma_window_ring_matches_jax(models):
+    """recurrentgemma-2b (reduced window 16): a 32-token prefill, past the
+    window, then decode steps that wrap the windowed layers' ring: the
+    logits and every layer's cache against JAX's, and the port's decode
+    against its own teacher-forced logits."""
+    cfg, jp, tm = models["recurrentgemma-2b"]
+    assert cfg.window == 16
+    tok = tokens(cfg, 16, s=36)
+
+    def run():
+        _, c, _ = JT.forward(cfg, jp, {"tokens": jnp.asarray(tok[:, :32])},
+                             mode="prefill", cache_len=40)
+        outs = []
+        for step in range(32, 36):
+            d, c = JT.decode_step(cfg, jp, jnp.asarray(tok[:, step]), c,
+                                  step)
+            outs.append(d)
+        return outs + [layer[k] for layer in jax_layer_caches(c)
+                       for k in sorted(layer)]
+
+    want, tols = jax_and_tols(cfg, run)
+    _, tc, _ = TT.forward(tm.cfg, tm, {"tokens": t(tok[:, :32]).long()},
+                          mode="prefill", cache_len=40)
+    assert [c["k"].shape[1] for c in tc if "k" in c] == [16, 16]
+    got = []
+    for step in range(32, 36):
+        td, tc = TT.decode_step(tm.cfg, tm, t(tok[:, step]).long(), tc,
+                                step)
+        got.append(td)
+    got += [layer[k] for layer in tc for k in sorted(layer)]
+    assert len(got) == len(want)
+    for i, (g, w, tl) in enumerate(zip(got, want, tols)):
+        assert rel(g, w) <= tl, (i, rel(g, w), tl)
+    full, _, _ = TT.forward(tm.cfg, tm, {"tokens": t(tok).long()})
+    _, c, _ = TT.forward(tm.cfg, tm, {"tokens": t(tok[:, :32]).long()},
+                         mode="prefill", cache_len=40)
+    for step in range(32, 36):
+        dec, c = TT.decode_step(tm.cfg, tm, t(tok[:, step]).long(), c, step)
+        assert rel(dec, full[:, step].numpy()) < 3e-3, step
+
+
+def test_mtp_leaves_are_carried(models):
+    """deepseek-v3's MTP head: every JAX leaf lands in ``model.mtp``
+    (match_tree consumes it), and forward / decode never read it."""
+    cfg, jp, tm = models["deepseek-v3-671b"]
+    assert cfg.mtp and tm.mtp is not None
+    flat = jax.tree_util.tree_flatten_with_path(jp["mtp"])[0]
+    for path, leaf in flat:
+        node = tm.mtp
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
+    assert len(list(tm.mtp.parameters())) == len(flat)
+    tok = t(tokens(cfg, 17)).long()
+    before, _, _ = TT.forward(tm.cfg, tm, {"tokens": tok})
+    for prm in tm.mtp.parameters():
+        prm.data.fill_(float("nan"))
+    after, _, _ = TT.forward(tm.cfg, tm, {"tokens": tok})
+    assert torch.equal(before, after)
+    tree = jax.tree.map(np.asarray, jp)
+    tree.pop("mtp")
+    with pytest.raises(ValueError, match="keys"):
+        interop.params_from_numpy(cfg, tree, device="cpu")
+
+
 def test_decode_past_the_cache_raises(models):
     _, _, tm = models["qwen3-1.7b"]
     cfg = tm.cfg
@@ -253,13 +455,11 @@ def test_a_config_other_than_the_models_raises(models):
 
 def jax_layer_caches(jc):
     """The JAX package's prefill caches (prelude list, stacked body, tail
-    list) as one {"k", "v"} per layer in execution order, the port's
-    layout."""
+    list) as one dict per layer in execution order, the port's layout."""
     body = jc.get("body") or []
-    n_rep = body[0]["k"].shape[0] if body else 0
+    n_rep = next(iter(body[0].values())).shape[0] if body else 0
     return (list(jc.get("prelude", []))
-            + [{kv: u[kv][r] for kv in ("k", "v")} for r in range(n_rep)
-               for u in body]
+            + [{k: u[k][r] for k in u} for r in range(n_rep) for u in body]
             + list(jc.get("tail", [])))
 
 
@@ -267,12 +467,18 @@ def jax_layer_caches(jc):
 def test_forward_matches_jax(models, name):
     cfg, jp, tm = models[name]
     tok = tokens(cfg, 5)
-    jl, _, jaux = JT.forward(cfg, jp, {"tokens": jnp.asarray(tok)})
+
+    def run():
+        jl, _, jaux = JT.forward(cfg, jp, {"tokens": jnp.asarray(tok)})
+        return jl, jaux["normed"], jaux["hidden"]
+
+    want, tols = jax_and_tols(cfg, run)
     tl, caches, taux = TT.forward(tm.cfg, tm, {"tokens": t(tok).long()})
     assert caches is None
-    assert rel(tl, jl) <= 1e-4
-    assert rel(taux["normed"], jaux["normed"]) <= 1e-4
-    assert rel(taux["hidden"], jaux["hidden"]) <= 1e-4
+    for what, got, w, tl_ in zip(("logits", "normed", "hidden"),
+                                 (tl, taux["normed"], taux["hidden"]), want,
+                                 tols):
+        assert rel(got, w) <= tl_, what
     none, _, aux2 = TT.forward(tm.cfg, tm, {"tokens": t(tok).long()},
                                return_logits=False)
     assert none is None and torch.equal(aux2["normed"], taux["normed"])
@@ -283,25 +489,34 @@ def test_prefill_then_decode_matches_jax(models, name):
     cfg, jp, tm = models[name]
     tok = tokens(cfg, 6)
     half = S // 2
-    _, jc, _ = JT.forward(cfg, jp, {"tokens": jnp.asarray(tok[:, :half])},
-                          mode="prefill", cache_len=S)
+
+    def run():
+        _, jc, _ = JT.forward(cfg, jp,
+                              {"tokens": jnp.asarray(tok[:, :half])},
+                              mode="prefill", cache_len=S)
+        # the JAX body caches are stacked (n_rep, ...); the port's one per
+        # layer
+        layers = jax_layer_caches(jc)
+        jd, jc = JT.decode_step(cfg, jp, jnp.asarray(tok[:, half]), jc,
+                                half)
+        jd2, _ = JT.decode_step(cfg, jp, jnp.asarray(tok[:, half + 1]), jc,
+                                half + 1)
+        return [jd, jd2] + [layer[k] for layer in layers
+                            for k in sorted(layer)]
+
+    want, tols = jax_and_tols(cfg, run)
     _, tc, _ = TT.forward(tm.cfg, tm, {"tokens": t(tok[:, :half]).long()},
                           mode="prefill", cache_len=S)
-    # the JAX body caches are stacked (n_rep, ...); the port's one per layer
-    want_layers = jax_layer_caches(jc)
-    assert len(want_layers) == len(tc) == cfg.num_layers
-    for kv in ("k", "v"):
-        want = np.stack([np.asarray(c[kv]) for c in want_layers])
-        got = torch.stack([c[kv] for c in tc])
-        assert rel(got, want) <= 1e-4
-    jd, jc = JT.decode_step(cfg, jp, jnp.asarray(tok[:, half]), jc, half)
+    assert len(tc) == cfg.num_layers
+    keys = [sorted(layer) for layer in tc]
+    cache_got = [layer[k].clone() for layer in tc for k in sorted(layer)]
     td, tc = TT.decode_step(tm.cfg, tm, t(tok[:, half]).long(), tc, half)
-    assert rel(td, jd) <= 1e-4
-    jd2, _ = JT.decode_step(cfg, jp, jnp.asarray(tok[:, half + 1]), jc,
-                            half + 1)
     td2, _ = TT.decode_step(tm.cfg, tm, t(tok[:, half + 1]).long(), tc,
                             half + 1)
-    assert rel(td2, jd2) <= 1e-4
+    got = [td, td2] + cache_got
+    assert len(got) == len(want), keys
+    for i, (g, w, tl) in enumerate(zip(got, want, tols)):
+        assert rel(g, w) <= tl, (i, rel(g, w), tl)
 
 
 @pytest.mark.parametrize("name", LM)
@@ -320,21 +535,28 @@ def test_bf16_matches_jax_bf16(models, name):
     half = S // 2
 
     def run_jax(params):
-        lg, _, aux = JT.forward(cfg, params, {"tokens": jnp.asarray(tok)})
-        _, c, _ = JT.forward(cfg, params,
-                             {"tokens": jnp.asarray(tok[:, :half])},
-                             mode="prefill", cache_len=S)
-        dec, _ = JT.decode_step(cfg, params, jnp.asarray(tok[:, half]), c,
-                                half)
-        return (lg, aux["normed"], dec), jax_layer_caches(c)[0]["k"].dtype
+        with jax.disable_jit():
+            lg, _, aux = JT.forward(cfg, params,
+                                    {"tokens": jnp.asarray(tok)})
+            _, c, _ = JT.forward(cfg, params,
+                                 {"tokens": jnp.asarray(tok[:, :half])},
+                                 mode="prefill", cache_len=S)
+            dec, _ = JT.decode_step(cfg, params, jnp.asarray(tok[:, half]),
+                                    c, half)
+        dts = [{k: str(v.dtype) for k, v in layer.items()}
+               for layer in jax_layer_caches(c)]
+        return (lg, aux["normed"], dec), dts
 
-    (j16, cache_dt), (j32, _) = run_jax(jp16), run_jax(jp32)
+    (j16, cache_dts), (j32, _) = run_jax(jp16), run_jax(jp32)
     lg, _, aux = TT.forward(tm.cfg, tm, {"tokens": t(tok).long()})
     _, c, _ = TT.forward(tm.cfg, tm, {"tokens": t(tok[:, :half]).long()},
                          mode="prefill", cache_len=S)
     dec, _ = TT.decode_step(tm.cfg, tm, t(tok[:, half]).long(), c, half)
-    assert str(cache_dt) == "bfloat16"
-    assert all(x[kv].dtype == torch.bfloat16 for x in c for kv in "kv")
+    # the caches' dtypes are the reference's: bf16, but the recurrent
+    # states h in float32
+    assert [{k: str(v.dtype).split(".")[-1] for k, v in layer.items()}
+            for layer in c] == cache_dts
+    assert "bfloat16" in cache_dts[0].values()
     for what, got, want16, want32 in zip(
             ("logits", "normed", "decode logits"), (lg, aux["normed"], dec),
             j16, j32):
@@ -360,21 +582,24 @@ def test_decode_matches_forward(models, name):
 
 def test_unported_archs_raise():
     unported = [n for n in treg.REDUCED if n not in LM]
-    assert len(unported) == 6
+    assert sorted(unported) == ["musicgen-large", "qwen2-vl-7b"]
     for name in unported:
         cfg = treg.REDUCED[name]
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="item 11c-iv"):
             TT.plan_segments(cfg)
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="item 11c-iv"):
             TT.init_cache(cfg, 1, 4, torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="item 11c-iv"):
             TT.check_supported(treg.get_arch(name))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        TT.block_spec(treg.REDUCED["mamba2-780m"], "ssm")
-    # deepseek-v3 stays out for MLA and its MTP head, not for its experts
+    # what is left: the stub front ends and the audio family's positions
     with pytest.raises(NotImplementedError,
-                       match=r"attn_type 'mla', mtp not ported"):
-        TT.check_supported(treg.get_arch("deepseek-v3-671b"))
+                       match=r"input_mode 'embeddings', m_rope_sections "
+                             r"not ported"):
+        TT.check_supported(treg.get_arch("qwen2-vl-7b"))
+    with pytest.raises(NotImplementedError, match=r"family 'audio'"):
+        TT.check_supported(treg.get_arch("musicgen-large"))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TT.block_spec(treg.REDUCED["mamba2-780m"], "conv")
     for name in LM:
         TT.check_supported(treg.get_arch(name))
 
