@@ -115,6 +115,27 @@ cut depth), every kernel count staying 0:
 - SSD (phase 26): mamba2-780m at full size (48 layers, d_inner 3,072, 48
   heads, N 128).
 
+Then the stub front ends at full size, served as the LM path is, their
+inputs embeddings from ``--seed`` and each decode step fed the embedding
+rows of the tokens it generated (gated as phase 19):
+
+- qwen2-vl-7b (phase 27: 28 layers, d_model 3,584, 28 / 4 heads, d_ff
+  18,944, vocab 152,064; 7.62 B parameters): M-RoPE with (t, h, w)
+  streams that differ (an 8 x 8 image grid, then text);
+- musicgen-large (phase 28: 48 layers, d_model 2,048, 32 heads, LayerNorm
+  and a plain GELU FFN of 8,192, vocab 2,048; 2.42 B parameters):
+  sinusoidal absolute positions.
+
+Then the training path (phase 29): qwen3-1.7b at full width and depth in
+float32 through ``launch.train``'s pieces (AdamW, ``ShardedLoader`` over
+``SyntheticTokenStream``, ``Trainer`` with checkpoints and the straggler
+monitor), 40 steps of 8 x 128 tokens; a fresh trainer restores the
+step-20 checkpoint into a model of zeros and repeats steps 21-40 to the
+uninterrupted run's losses; remat and 2 microbatches against the plain
+step; one step at 2 layers on the card against the CPU; one step of the
+reduced MoE, MLA + MTP, RG-LRU and SSD archs card against CPU; an
+int8-moment run.  No phase from 21 on launches any of the eight kernels.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON reports kernels 1, 2, 4 and 8 with
 the activation index path's launches, 5 with the sharded path's and 3, 6
@@ -179,6 +200,29 @@ MLA_ARCH = "minicpm3-4b"
 V3_ARCH, V3_LAYERS, V3_CUT_LAYERS = "deepseek-v3-671b", 4, 3
 RG_ARCH, RG_CUT_LAYERS = "recurrentgemma-2b", 3
 SSM_ARCH = "mamba2-780m"
+# the stub front ends, served as LM_ARCH is: qwen2-vl-7b (embeddings
+# with M-RoPE streams) and musicgen-large (embeddings with sinusoidal
+# positions); musicgen-large's fp32 decode gate runs at 8 of its 48
+# layers: at full depth the reference init's residual stream (|h| ~2,250)
+# moves its logits by 1.4e-2 when the input embeddings move by one float32
+# rounding, past the gate's 3e-3 (at 8 layers: 3.6e-4;
+# tools/decode_gate_depth.py)
+VLM_ARCH, AUDIO_ARCH, AUDIO_DECODE_LAYERS = ("qwen2-vl-7b", "musicgen-large",
+                                             8)
+# the training path (qwen3-1.7b at full width and depth, float32): batch,
+# sequence, steps, the step of the checkpoint a fresh trainer restores;
+# the card-vs-CPU step at 2 layers on a (2, 32) batch; the reduced
+# families stepped card vs CPU; the int8-moment run's steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "qwen3-1.7b", 8, 128
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_LR = 40, 20, 1e-3
+TRAIN_CUT_LAYERS, TRAIN_CUT_B, TRAIN_CUT_S = 2, 2, 32
+# the remat gate's batch: at 8 x 128 the step's peak is the end of
+# backward (every gradient, the tied embedding's two), where remat saves
+# nothing; at 32 x 128 the saved activations outgrow it
+TRAIN_REMAT_B = 32
+TRAIN_FAMILIES = ("deepseek-moe-16b", "deepseek-v3-671b",
+                  "recurrentgemma-2b", "mamba2-780m")
+INT8_STEPS = 8
 # the activation index path: sequences, their length, the embedding
 # batch, probe normals and their labelled subsets, the scan's l
 ACT_N, ACT_S, ACT_BATCH = 8192, 128, 64
@@ -558,22 +602,99 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def as_batch(inputs) -> dict:
+    """A tokens tensor (B, S) as forward's batch; a batch as given."""
+    return inputs if isinstance(inputs, dict) else {"tokens": inputs}
+
+
+def lm_inputs(cfg, g, dev, b, s, gate=False) -> dict:
+    """b requests of s positions drawn from generator g: tokens, or for a
+    stub front end N(0, 1) float32 embeddings (B, S, D) and, with M-RoPE,
+    (3, B, S) streams: an image grid first (8 x 8 when s >= 128: t 0,
+    h i // 8, w i % 8), the text after it in all three streams from the
+    grid's largest position + 1 (serving) or, with gate=True, from the
+    slot index (the positions ``decode_step`` rotates by, so a decode step
+    and the teacher-forced forward see the same streams)."""
+    import torch
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=g, device=dev)}
+    out = {"embeds": torch.randn((b, s, cfg.d_model), generator=g,
+                                 device=dev)}
+    if cfg.m_rope_sections:
+        side = 8
+        while side > 1 and side * side > s // 2:
+            side //= 2
+        i = torch.arange(side * side, device=dev)
+        grid = torch.stack([torch.zeros_like(i), i // side, i % side])
+        start = side * side if gate else side
+        text = torch.arange(start, start + s - side * side,
+                            device=dev).expand(3, -1)
+        out["mrope_positions"] = torch.cat([grid, text], 1)[:, None, :] \
+            .expand(3, b, s).contiguous()
+    return out
+
+
+def slice_batch(batch: dict, lo: int, hi: int) -> dict:
+    """Positions lo:hi of a batch (the M-RoPE streams on their last axis)."""
+    return {k: (v[:, :, lo:hi] if k == "mrope_positions" else v[:, lo:hi])
+            for k, v in batch.items()}
+
+
+def batch_to(batch: dict, dev) -> dict:
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def feed(cfg, model, nxt):
+    """A decode step's input from the tokens just generated: the tokens,
+    or for a stub front end their rows of the embedding table."""
+    return nxt if cfg.input_mode == "tokens" else model.embed[nxt]
+
+
+def position_input(cfg, batch: dict, i: int):
+    """The batch's input at position i, as a decode step takes it."""
+    return batch["tokens" if cfg.input_mode == "tokens" else "embeds"][:, i]
+
+
+def generate(cfg, engine, batch: dict, gen: int):
+    """Greedy generation of gen tokens through the engine's steps:
+    ``Engine.generate`` for tokens; for a stub front end the prefill of
+    the batch's embeddings (and streams), then each step fed the
+    embedding rows of the tokens it generated."""
+    import torch
+    if cfg.input_mode == "tokens":
+        return engine.generate(batch["tokens"], gen)
+    s0 = batch["embeds"].shape[1]
+    with torch.inference_mode():
+        last, caches = engine.prefill_step(engine.model, batch)
+        nxt = torch.argmax(last, dim=-1)
+        out = [nxt]
+        for i in range(gen - 1):
+            nxt, caches = engine.serve_step(
+                engine.model, caches, feed(cfg, engine.model, nxt), s0 + i)
+            out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
 def serve_timed(cfg, model, prompts, gen, dev, stats):
-    """Engine.generate twice on prompts (greedy; the two must agree), then
-    the same loop with each step timed alone (host clock around a step
-    that ends in a synchronise) and, on the card, one decode step and one
-    prefill under torch.profiler.  Fills stats; returns the engine and
-    the generated tokens."""
+    """Greedy generation twice on prompts (tokens, or a batch of
+    embeddings; ``generate``; the two must agree), then the same loop with
+    each step timed alone (host clock around a step that ends in a
+    synchronise) and, on the card, one decode step and one prefill under
+    torch.profiler.  Fills stats; returns the engine and the generated
+    tokens."""
     import numpy as np
     import torch
     from repro_torch.serve.engine import Engine
-    batch, prompt = prompts.shape
+    prompts = as_batch(prompts)
+    first = prompts["tokens" if "tokens" in prompts else "embeds"]
+    batch, prompt = first.shape[:2]
     cuda = dev.type == "cuda"
     engine = Engine(cfg, model, max_len=prompt + gen, device=dev)
     outs = []
     for label in ("first", "steady"):
         t0 = time.perf_counter()
-        outs.append(engine.generate(prompts, gen))
+        outs.append(generate(cfg, engine, prompts, gen))
         _sync(torch, dev)
         stats[f"{label}_s"] = time.perf_counter() - t0
     out = outs[1]
@@ -586,7 +707,7 @@ def serve_timed(cfg, model, prompts, gen, dev, stats):
     with torch.inference_mode():
         _sync(torch, dev)
         t0 = time.perf_counter()
-        last, caches = engine.prefill_step(model, {"tokens": prompts})
+        last, caches = engine.prefill_step(model, prompts)
         nxt = torch.argmax(last, dim=-1)
         _sync(torch, dev)
         prefill_ms = 1e3 * (time.perf_counter() - t0)
@@ -599,7 +720,8 @@ def serve_timed(cfg, model, prompts, gen, dev, stats):
         steps, step_ms = [nxt], []
         for i in range(gen - 1):
             t0 = time.perf_counter()
-            nxt, caches = engine.serve_step(model, caches, nxt, prompt + i)
+            nxt, caches = engine.serve_step(model, caches,
+                                            feed(cfg, model, nxt), prompt + i)
             _sync(torch, dev)
             step_ms.append(1e3 * (time.perf_counter() - t0))
             steps.append(nxt)
@@ -610,10 +732,10 @@ def serve_timed(cfg, model, prompts, gen, dev, stats):
         # host clock (the last slot rewritten, same shapes)
         for label, fn, wall in (
                 ("decode step", lambda: engine.serve_step(
-                    model, caches, nxt, prompt + gen - 1),
+                    model, caches, feed(cfg, model, nxt), prompt + gen - 1),
                  float(np.quantile(step_ms, 0.5))),
-                ("prefill", lambda: engine.prefill_step(
-                    model, {"tokens": prompts}), prefill_ms)):
+                ("prefill", lambda: engine.prefill_step(model, prompts),
+                 prefill_ms)):
             busy, prof = device_profile(torch, fn)
             top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]
             stats[f"{label.split()[0]}_device_ms"] = busy
@@ -671,6 +793,11 @@ def init_model(args, cfg, dev, stats):
     if "rec" in cfg.block_pattern:
         mix += (f", blocks {'/'.join(cfg.block_pattern)}, RG-LRU width "
                 f"{cfg.rnn_width}, window {cfg.window}")
+    if cfg.m_rope_sections:
+        mix += f", M-RoPE sections {cfg.m_rope_sections}"
+    if cfg.input_mode != "tokens":
+        mix += (f", {cfg.input_mode} input ({cfg.family}), {cfg.norm_type}, "
+                f"{'gated ' if cfg.mlp_gated else ''}{cfg.mlp_act}")
     if "ssm" in cfg.block_pattern:
         mix = (f"SSD mixer (d_inner {cfg.ssm_expand * cfg.d_model}, "
                f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} heads x "
@@ -721,7 +848,10 @@ def rglru_one_ulp_down():
                             + p["b_x"])
         log_a = rglru._C * r_t * torch.nn.functional.logsigmoid(
             p["lam"].to(torch.float32))
-        a = torch.nextafter(torch.exp(log_a), torch.zeros_like(log_a))
+        a = torch.exp(log_a)
+        # one ulp down; the gradient passes through as the identity
+        a0 = a.detach()
+        a = a - (a0 - torch.nextafter(a0, torch.zeros_like(a0)))
         gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_t * xc)
         return a, gated
 
@@ -733,30 +863,33 @@ def rglru_one_ulp_down():
 
 
 def cut_gates(cfg, tree, layers, tok, dev, stats):
-    """The gates at ``layers`` layers (``cut_tree``): the card's fp32
-    forward logits against the CPU's (< 1e-4; with RG-LRU blocks, < the
-    larger of 1e-4 and the CPU's own move under ``rglru_one_ulp_down``),
-    and
-    its bf16 logits nearer the CPU's bf16 logits than CPU bf16 lies to
-    CPU fp32.  Returns (cut cfg, cut tree)."""
+    """The gates at ``layers`` layers (``cut_tree``) on tok (tokens, or a
+    batch of embeddings): the card's fp32 forward logits against the
+    CPU's (< 1e-4; with RG-LRU blocks, < the larger of 1e-4 and the CPU's
+    own move under ``rglru_one_ulp_down``), and its bf16 logits nearer
+    the CPU's bf16 logits than CPU bf16 lies to CPU fp32.  Returns (cut
+    cfg, cut tree)."""
     import torch
     from repro_torch.core.functions import strict_fp32
     from repro_torch.models import Transformer, forward
     cut, tree_cut = cut_tree(cfg, tree, layers)
-    b, s = tok.shape
+    batch = as_batch(tok)
+    first = batch["tokens" if "tokens" in batch else "embeds"]
+    b, s = first.shape[:2]
+    cpu = torch.device("cpu")
     logits = {}
     with strict_fp32(), torch.inference_mode():
         for dt in (torch.float32, torch.bfloat16):
-            for where, t in ((dev, tok), (torch.device("cpu"), tok.cpu())):
+            for where in (dev, cpu):
                 logits[dt, where.type] = forward(
                     cut, Transformer(cut, tree_cut, dtype=dt, device=where),
-                    {"tokens": t})[0]
+                    batch_to(batch, where))[0]
         tol = 1e-4
         if "rec" in cfg.block_pattern:
             with rglru_one_ulp_down():
                 moved = forward(cut, Transformer(
                     cut, tree_cut, dtype=torch.float32, device="cpu"),
-                    {"tokens": tok.cpu()})[0]
+                    batch_to(batch, cpu))[0]
             stats["rglru_one_ulp"] = rel_err(moved,
                                              logits[torch.float32, "cpu"])
             tol = max(tol, stats["rglru_one_ulp"])
@@ -788,23 +921,28 @@ def cut_gates(cfg, tree, layers, tok, dev, stats):
 
 def decode_gate(cfg, model32, tok, dev):
     """fp32 decode step (prefilled half way) against the teacher-forced
-    logits at that position.  Returns (relative error, its bound): 3e-3,
-    or with RG-LRU blocks the larger of 3e-3 and how far the teacher-forced
-    logits move under ``rglru_one_ulp_down``."""
+    logits at that position, on tok (tokens, or a batch of embeddings
+    whose M-RoPE streams at that position are its slot index).  Returns
+    (relative error, its bound): 3e-3, or with RG-LRU blocks the larger of
+    3e-3 and how far the teacher-forced logits move under
+    ``rglru_one_ulp_down``."""
     import torch
     from repro_torch.core.functions import strict_fp32
     from repro_torch.models import decode_step, forward
-    half = tok.shape[1] // 2
+    batch = as_batch(tok)
+    s = batch["tokens" if "tokens" in batch else "embeds"].shape[1]
+    half = s // 2
     bound = 3e-3
     with strict_fp32(), torch.inference_mode():
-        _, caches, _ = forward(cfg, model32, {"tokens": tok[:, :half]},
-                               mode="prefill", cache_len=tok.shape[1])
-        dec, _ = decode_step(cfg, model32, tok[:, half], caches, half)
+        _, caches, _ = forward(cfg, model32, slice_batch(batch, 0, half),
+                               mode="prefill", cache_len=s)
+        dec, _ = decode_step(cfg, model32, position_input(cfg, batch, half),
+                             caches, half)
         del caches
-        full, _, _ = forward(cfg, model32, {"tokens": tok})
+        full, _, _ = forward(cfg, model32, batch)
         if "rec" in cfg.block_pattern:
             with rglru_one_ulp_down():
-                moved = forward(cfg, model32, {"tokens": tok})[0]
+                moved = forward(cfg, model32, batch)[0]
             bound = max(bound, rel_err(moved[:, half], full[:, half]))
     return rel_err(dec, full[:, half]), bound
 
@@ -830,7 +968,7 @@ def print_bounds(cfg, model, stats, cuda):
 
 
 def lm_phase(args, cfg, dev, zero_counts, read_counts,
-             cut_layers=CUT_LAYERS):
+             cut_layers=CUT_LAYERS, decode_layers=None):
     """The LM serving path at cfg's full width and depth: bf16 weights
     from ``--seed``, ``Engine.generate`` twice on LM_BATCH random prompts
     (greedy), then the per-step times beside their bounds; the fp32 gates
@@ -838,7 +976,8 @@ def lm_phase(args, cfg, dev, zero_counts, read_counts,
     at ``cut_layers`` layers), the bf16 gate (card against CPU at
     ``cut_layers`` layers, bounded by bf16's own distance from fp32) and
     bf16 against fp32 greedy agreement.  Every kernel count is set to 0
-    before the serving run and must still be 0 after it.  Sizes are the
+    before the serving run and must still be 0 after it.  decode_layers:
+    the decode gate's depth (default the full depth).  Sizes are the
     module's constants.  Returns the bf16 model and its stats."""
     import numpy as np
     import torch
@@ -851,8 +990,7 @@ def lm_phase(args, cfg, dev, zero_counts, read_counts,
         torch.cuda.reset_peak_memory_stats()
     stats = {}
     tree, model, g = init_model(args, cfg, dev, stats)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
-                            device=dev)
+    prompts = lm_inputs(cfg, g, dev, batch, prompt)
     zero_counts()
     _, out = serve_timed(cfg, model, prompts, gen, dev, stats)
     launched = read_counts()
@@ -863,27 +1001,35 @@ def lm_phase(args, cfg, dev, zero_counts, read_counts,
     print_bounds(cfg, model, stats, cuda)
 
     # gate: decode step against teacher-forced logits, fp32, full depth
+    # (or decode_layers)
     model32 = Transformer(cfg, tree, dtype=torch.float32)
-    tok = torch.randint(0, cfg.vocab_size, (2, GATE_S), generator=g,
-                        device=dev)
-    err_dec, bound = decode_gate(cfg, model32, tok, dev)
-    print(f"fp32 gate, full depth (B 2, S {GATE_S}, prefill "
+    tok = lm_inputs(cfg, g, dev, 2, GATE_S, gate=True)
+    if decode_layers:
+        cut, tree_cut = cut_tree(cfg, tree, decode_layers)
+        err_dec, bound = decode_gate(
+            cut, Transformer(cut, tree_cut, dtype=torch.float32), tok, dev)
+        depth = f"{decode_layers} layers"
+    else:
+        err_dec, bound = decode_gate(cfg, model32, tok, dev)
+        depth = "full depth"
+    print(f"fp32 gate, {depth} (B 2, S {GATE_S}, prefill "
           f"{GATE_S // 2}): decode step vs teacher-forced logits at "
           f"position {GATE_S // 2}: relative error {err_dec} (bound "
           f"{bound})")
     check(err_dec < bound, f"decode matches forward within {bound} (fp32)")
 
     # gates: card against CPU at the cut depth, fp32 and bf16
-    cut_gates(cfg, tree, cut_layers, tok[:, :CUT_S], dev, stats)
+    cut_gates(cfg, tree, cut_layers, slice_batch(tok, 0, CUT_S), dev, stats)
 
     # report: bf16 against fp32 greedy tokens on the same prompts
-    out32 = Engine(cfg, model32, max_len=prompt + gen,
-                   device=dev).generate(prompts, gen)
+    out32 = generate(cfg, Engine(cfg, model32, max_len=prompt + gen,
+                                 device=dev), prompts, gen)
     same = (out32 == out).float().mean().item()
     first_diff = [int(np.flatnonzero(r)[0]) if r.any() else None
                   for r in (out32 != out).cpu().numpy()]
     stats.update(bf16_fp32_agreement=same, err_decode=err_dec,
-                 decode_gate_bound=bound)
+                 decode_gate_bound=bound,
+                 decode_gate_layers=decode_layers or cfg.num_layers)
     if cuda:
         stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"bf16 vs fp32 greedy tokens: {same:.4f} of {batch * gen} agree; "
@@ -1414,6 +1560,378 @@ def activation_phase(args, cfg, model, dev, zero_counts, read_counts,
               f"{k4_lib_ms} ms, bound {k4_bound} ms "
               f"({stats['k4']['bound_by']})")
     return launches, stats
+
+
+def train_bounds(cfg, n_params, batch, seq, itemsize=4):
+    """The least time of one float32 train step on the card: 6 N tokens
+    flops (forward and backward of every weight) plus the attention
+    scores' 3 x 4 B H S^2 hd per layer, at FP32_FLOP_S; then AdamW's seven
+    passes over the parameters' bytes (parameters read and written, the
+    gradient read, both moments read and written) at HBM_BYTES_S.
+    Returns (ms, matmul ms, AdamW ms, flops, AdamW bytes)."""
+    attn = 3 * 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+    flops = 6 * n_params * batch * seq + cfg.num_layers * attn
+    adam_bytes = 7 * n_params * itemsize
+    t_mm = 1e3 * flops / FP32_FLOP_S
+    t_adam = 1e3 * adam_bytes / HBM_BYTES_S
+    return t_mm + t_adam, t_mm, t_adam, flops, adam_bytes
+
+
+def step_gap(cfg, tree, batch, dev, opt_cfg, control=False):
+    """One train step of cfg from tree on dev and on the CPU: (card
+    metrics, CPU metrics, card tree, CPU tree, the CPU's grad-norm move
+    under ``rglru_one_ulp_down`` or None)."""
+    import torch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import Transformer
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.adamw import global_norm, init_opt_state
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    step = make_train_step(cfg, opt_cfg, remat=False)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        m = Transformer(cfg, tree_map(lambda t: t.to(where).clone(), tree),
+                        trainable=True)
+        st = init_opt_state(m.tree(), opt_cfg)
+        _, _, met = step(m, st, batch_to(batch, where))
+        out.append(({k: float(v) for k, v in met.items()}, m))
+    moved = None
+    if control:
+        m = Transformer(cfg, tree_map(lambda t: t.clone(), tree_map(
+            lambda t: t.cpu(), tree)), trainable=True)
+        with strict_fp32(), rglru_one_ulp_down():
+            _, g = make_grad_fn(cfg, remat=False)(m, batch_to(batch, "cpu"))
+        moved = abs(float(global_norm(g)) - out[1][0]["grad_norm"]) \
+            / out[1][0]["grad_norm"]
+    return out[0][0], out[1][0], out[0][1], out[1][1], moved
+
+
+def train_phase(args, dev, zero_counts, read_counts):
+    """The training path at qwen3-1.7b's full width and depth, through
+    ``launch.train``'s pieces (``build``: float32 parameters from
+    ``--seed``, AdamW lr TRAIN_LR with 20 warm-up steps,
+    ``SyntheticTokenStream`` batches through the prefetching
+    ``ShardedLoader``, ``Trainer`` with its checkpoint every 20 steps and
+    its straggler monitor): TRAIN_STEPS steps, timed with CUDA events,
+    one profiled; then a fresh trainer over a model of zeros restores the
+    step-TRAIN_CKPT_AT checkpoint and runs the steps after it, whose
+    losses must match the uninterrupted run's.  Gates: the loss falls;
+    remat gives the loss and the gradient norm of no remat at a lower
+    peak (at TRAIN_REMAT_B sequences); 2 microbatches give those of 1;
+    at TRAIN_CUT_LAYERS layers (the full-depth init's first layers) the
+    card's step matches the CPU's (loss, gradient norm, updated
+    parameters); one step of each of TRAIN_FAMILIES (reduced) card vs
+    CPU; an int8-moment run at the cut depth stays finite and falls;
+    every kernel count stays 0.  Returns stats."""
+    import shutil
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params, model_spec
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.adamw import (AdamWConfig, global_norm,
+                                         init_opt_state, tree_leaves)
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    cuda = dev.type == "cuda"
+    stats = {}
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    targs = launch_train.parser().parse_args([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+        "--ckpt-dir", str(ckpt_dir), "--seed", str(args.seed), "--device",
+        str(dev)])
+    sigterm = signal.getsignal(signal.SIGTERM)   # the trainer takes it
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def trainer_of(zero):
+        """launch.train's pieces, the step timed with CUDA events and the
+        checkpoint writes with the host clock."""
+        t0 = time.perf_counter()
+        cfg, model, opt_cfg, _, step_fn, loader, tr = launch_train.build(
+            targs)
+        if zero:
+            with torch.no_grad():
+                for t in tree_leaves(model.tree()):
+                    t.zero_()
+        _sync(torch, dev)
+        built = time.perf_counter() - t0
+        events, writes = [], []
+
+        def timed_step(m, st, b):
+            if not cuda:
+                return step_fn(m, st, b)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step_fn(m, st, b)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        real_write, real_save = tr.ckpt._write, tr.ckpt.save
+
+        def timed_write(step, host):
+            t = time.perf_counter()
+            real_write(step, host)
+            writes.append((f"write {step}", time.perf_counter() - t))
+
+        def timed_save(step, tree, blocking=False):
+            t = time.perf_counter()
+            real_save(step, tree, blocking)
+            writes.append((f"save call {step}", time.perf_counter() - t))
+
+        tr.train_step = timed_step
+        tr.ckpt._write = timed_write
+        tr.ckpt.save = timed_save
+        return cfg, model, opt_cfg, step_fn, loader, tr, events, writes, built
+
+    # -- the uninterrupted run
+    zero_counts()
+    cfg, model, opt_cfg, step_fn, loader, tr, events, writes, built = \
+        trainer_of(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name} training: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size} (tied "
+          f"{cfg.tie_embeddings}): {n_params} float32 parameters "
+          f"({4 * n_params / 2**30:.3f} GiB; with gradients and two "
+          f"float32 moments {16 * n_params / 1e9:.2f} GB), built in "
+          f"{built:.2f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr "
+          f"{TRAIN_LR}, warm-up 20, checkpoint every "
+          f"{tr.cfg.ckpt_every} steps into {ckpt_dir.name}/")
+    t0 = time.perf_counter()
+    hist = tr.run(TRAIN_STEPS)
+    run_s = time.perf_counter() - t0
+    _sync(torch, dev)
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and np.isfinite(losses).all(),
+          "the training run's losses are finite")
+    check(losses[-1] < losses[0], f"the loss falls over {TRAIN_STEPS} "
+          f"steps: {losses[0]} -> {losses[-1]}")
+    stats.update(params=n_params, loss_1=losses[0],
+                 loss_mid=losses[TRAIN_CKPT_AT - 1], loss_last=losses[-1],
+                 stragglers=tr.monitor.flagged, run_s=run_s,
+                 grad_norm_1=hist[0]["grad_norm"],
+                 ckpt_writes_s=dict(writes))
+    if step_ms:
+        p50 = float(np.quantile(step_ms, 0.5))
+        stats.update(step_p50_ms=p50, step_p95_ms=float(
+            np.quantile(step_ms, 0.95)), step_max_ms=max(step_ms),
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3))
+    batch = next(loader)
+    if cuda:
+        busy, prof = device_profile(torch, lambda: step_fn(
+            model, tr.opt_state, batch))
+        top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]
+        stats.update(step_device_ms=busy, step_kernels=sum(
+            k for _, k in prof.values()))
+        stats["busy_share"] = busy / stats["step_p50_ms"]
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"one train step under torch.profiler: device busy "
+              f"{busy:.3f} ms, {stats['step_kernels']} kernel launches; "
+              f"largest: " + json.dumps({k[:60]: round(v[0], 3)
+                                        for k, v in top}))
+    bound = train_bounds(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    stats.update(bound_ms=bound[0], bound_matmul_ms=bound[1],
+                 bound_adamw_ms=bound[2])
+    print(f"losses: step 1 {losses[0]:.5f}, step {TRAIN_CKPT_AT} "
+          f"{losses[TRAIN_CKPT_AT - 1]:.5f}, step {TRAIN_STEPS} "
+          f"{losses[-1]:.5f}; step p50 "
+          f"{stats.get('step_p50_ms', float('nan')):.3f} ms (CUDA events), "
+          f"p95 {stats.get('step_p95_ms', float('nan')):.3f}, "
+          f"{stats.get('tokens_per_s', float('nan')):.1f} tokens/s; device "
+          f"busy share {stats.get('busy_share', float('nan')):.3f}; "
+          f"stragglers flagged {tr.monitor.flagged}; checkpoint s (the "
+          f"save call snapshots to the host, the write runs on its thread) "
+          f"{json.dumps(stats['ckpt_writes_s'])}; peak "
+          f"{stats.get('peak_gib', float('nan')):.3f} GiB")
+    print(f"train step bound {bound[0]:.3f} ms ({bound[3] / 1e12:.3f} "
+          f"TFLOP at {FP32_FLOP_S / 1e12:.0f} TFLOP/s fp32 = "
+          f"{bound[1]:.3f} ms, + AdamW {bound[4] / 1e9:.2f} GB at "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s = {bound[2]:.3f} ms); measured "
+          f"p50 {stats.get('step_p50_ms', float('nan')):.3f} ms")
+    loader.close()
+    # the cut run never reached its step-TRAIN_STEPS checkpoint
+    shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS}", ignore_errors=True)
+    del model, tr, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- a fresh trainer over zeros restores step TRAIN_CKPT_AT
+    _, model, _, step_fn, loader, tr, _, writes2, _ = trainer_of(True)
+    for _ in range(TRAIN_CKPT_AT):        # the batches the cut run took
+        next(loader)
+    t0 = time.perf_counter()
+    check(tr.maybe_restore() and tr.step == TRAIN_CKPT_AT
+          and int(tr.opt_state["step"]) == TRAIN_CKPT_AT,
+          f"the fresh trainer restores step {TRAIN_CKPT_AT}")
+    _sync(torch, dev)
+    stats["restore_s"] = time.perf_counter() - t0
+    hist2 = tr.run(TRAIN_STEPS - TRAIN_CKPT_AT)
+    after = [h["loss"] for h in hist2]
+    want = losses[TRAIN_CKPT_AT:]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(after, want))
+    stats.update(restart_max_rel=gap, restart_writes_s=dict(writes2))
+    print(f"restart: restored step {TRAIN_CKPT_AT} in "
+          f"{stats['restore_s']:.2f} s; steps {TRAIN_CKPT_AT + 1}-"
+          f"{TRAIN_STEPS} losses vs the uninterrupted run's: max relative "
+          f"difference {gap} (bound 1e-3); restored "
+          f"{[round(v, 6) for v in after]}, uninterrupted "
+          f"{[round(v, 6) for v in want]}")
+    check(gap < 1e-3, "the restored run matches the uninterrupted one")
+
+    # -- remat (at TRAIN_REMAT_B x TRAIN_SEQ) and microbatches, on the
+    # restored model
+    batch = next(loader)
+    loader.close()
+    big = torch.from_numpy(SyntheticTokenStream(cfg.vocab_size, seed=1)
+                           .batch(TRAIN_REMAT_B, TRAIN_SEQ)).long().to(dev)
+    big = {"tokens": big, "labels": big}
+    got = {}
+    for label, b, kw in (
+            ("plain", batch, dict(remat=False)),
+            ("microbatches 2", batch, dict(remat=False, num_microbatches=2)),
+            (f"plain, B {TRAIN_REMAT_B}", big, dict(remat=False)),
+            (f"remat, B {TRAIN_REMAT_B}", big, dict(remat=True))):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with strict_fp32():
+            loss, g = make_grad_fn(cfg, **kw)(model, b)
+            gn = float(global_norm(g))
+        del g
+        peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                else float("nan"))
+        got[label] = (float(loss), gn, peak)
+        print(f"{label}: loss {float(loss):.7f}, grad norm {gn:.6f}, peak "
+              f"{peak:.3f} GiB")
+    (l0, g0, p0), (l1, g1, p1) = (got[f"plain, B {TRAIN_REMAT_B}"],
+                                  got[f"remat, B {TRAIN_REMAT_B}"])
+    (l3, g3, _), (l2, g2, _) = got["plain"], got["microbatches 2"]
+    stats.update(remat_loss_rel=abs(l1 - l0) / l0,
+                 remat_gnorm_rel=abs(g1 - g0) / g0, peak_plain_gib=p0,
+                 peak_remat_gib=p1, mb2_loss_rel=abs(l2 - l3) / l3,
+                 mb2_gnorm_rel=abs(g2 - g3) / g3)
+    check(stats["remat_loss_rel"] <= 1e-6 and stats["remat_gnorm_rel"]
+          <= 1e-5, "remat gives no remat's loss (1e-6) and grad norm (1e-5)")
+    check(not cuda or p1 < p0, "remat lowers the step's peak memory")
+    check(stats["mb2_loss_rel"] <= 1e-5 and stats["mb2_gnorm_rel"] <= 1e-4,
+          "2 microbatches give 1's loss (1e-5) and grad norm (1e-4)")
+    del model, tr, batch, big
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- the card against the CPU: one step at the cut depth, full width;
+    # the first layers of the full-depth init (``cut_tree``): a tree drawn
+    # at 2 layers takes the reference's fan_in of a stacked weight, n_rep
+    # = 2, and its gradients overflow float32
+    g_cut = torch.Generator(device=dev).manual_seed(args.seed)
+    full_tree = init_params(model_spec(cfg), torch.float32, generator=g_cut,
+                            device=dev)
+    cut, tree = cut_tree(cfg, full_tree, TRAIN_CUT_LAYERS)
+    tree = tree_map(lambda t: t.clone(), tree)
+    del full_tree
+    stream = SyntheticTokenStream(cfg.vocab_size, seed=args.seed)
+    tok = torch.from_numpy(stream.batch(TRAIN_CUT_B, TRAIN_CUT_S)).long()
+    cut_opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                          total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    mc, mp, card, cpu, _ = step_gap(cut, tree, {"tokens": tok,
+                                                "labels": tok}, dev, cut_opt)
+    lr1 = mc["lr"]
+    maxes, beyond, n, pmax = [], 0, 0, 0.0
+    for a, b in zip(tree_leaves(card.tree()), tree_leaves(cpu.tree())):
+        d = (a.detach().cpu() - b.detach()).abs()
+        maxes.append(float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        n += d.numel()
+        pmax = max(pmax, float(b.detach().abs().max()))
+    dmax = float(torch.tensor(maxes).max())      # NaN if any leaf is
+    bound_p = 2 * lr1 * (1 + cut_opt.weight_decay * pmax)
+    stats.update(cut_loss_rel=abs(mc["loss"] - mp["loss"]) / mp["loss"],
+                 cut_gnorm_rel=abs(mc["grad_norm"] - mp["grad_norm"])
+                 / mp["grad_norm"], cut_param_max_abs=dmax,
+                 cut_param_share_beyond_1e6=beyond / n,
+                 cut_s=time.perf_counter() - t0)
+    print(f"card vs CPU, one step at {TRAIN_CUT_LAYERS} layers, full width "
+          f"(B {TRAIN_CUT_B}, S {TRAIN_CUT_S}; {stats['cut_s']:.1f} s): "
+          f"loss {mc['loss']:.7f} / {mp['loss']:.7f} (relative "
+          f"{stats['cut_loss_rel']}, bound 1e-5), grad norm relative "
+          f"{stats['cut_gnorm_rel']} (bound 1e-4), updated parameters: max "
+          f"|difference| {dmax} (bound 2 lr (1 + wd max|p|) = {bound_p}), "
+          f"{beyond} of {n} beyond 1e-6 (bound 1e-4 of them)")
+    check(np.isfinite([mc["grad_norm"], mp["grad_norm"], dmax]).all()
+          and stats["cut_loss_rel"] <= 1e-5
+          and stats["cut_gnorm_rel"] <= 1e-4,
+          "the card's step matches the CPU's loss and grad norm")
+    check(dmax <= bound_p and beyond <= 1e-4 * n,
+          "the card's updated parameters match the CPU's")
+    del card, cpu
+
+    # -- int8 moments at the cut depth: finite and falling
+    from repro_torch.models import Transformer
+    m8 = Transformer(cut, tree, trainable=True)
+    opt8 = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=INT8_STEPS,
+                       moment_dtype="int8")
+    st8 = init_opt_state(m8.tree(), opt8)
+    step8 = make_train_step(cut, opt8, remat=False, seed=args.seed)
+    # one batch every step: the fall is the optimizer's, not the batches'
+    t8 = torch.from_numpy(stream.batch(TRAIN_BATCH, TRAIN_SEQ)).long().to(dev)
+    l8 = []
+    for _ in range(INT8_STEPS):
+        _, st8, met = step8(m8, st8, {"tokens": t8, "labels": t8})
+        l8.append(float(met["loss"]))
+    stats.update(int8_losses=l8)
+    print(f"int8 moments, {TRAIN_CUT_LAYERS} layers, {INT8_STEPS} steps on "
+          f"one batch of {TRAIN_BATCH} x {TRAIN_SEQ}: loss {l8[0]:.5f} -> "
+          f"{l8[-1]:.5f}")
+    check(np.isfinite(l8).all() and l8[-1] < l8[0],
+          "the int8-moment run stays finite and its loss falls")
+    del m8, st8, tree
+
+    # -- one step of each other family, reduced, card vs CPU
+    fam = {}
+    for name in TRAIN_FAMILIES:
+        rc = REDUCED[name]
+        g_r = torch.Generator().manual_seed(args.seed)
+        tree = init_params(model_spec(rc), torch.float32, generator=g_r,
+                           device="cpu")
+        rs = SyntheticTokenStream(rc.vocab_size, seed=args.seed)
+        tk = torch.from_numpy(rs.batch(4, 32)).long()
+        rec = "rec" in rc.block_pattern
+        mc, mp, _, _, moved = step_gap(
+            rc, tree, {"tokens": tk, "labels": tk}, dev,
+            AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10),
+            control=rec)
+        tol = max(1e-4, 2 * moved) if rec else 1e-4
+        fam[name] = dict(
+            loss_rel=abs(mc["loss"] - mp["loss"]) / mp["loss"],
+            gnorm_rel=abs(mc["grad_norm"] - mp["grad_norm"])
+            / mp["grad_norm"], gnorm_bound=tol)
+        print(f"{name} (reduced): one step card vs CPU: loss relative "
+              f"{fam[name]['loss_rel']} (bound 1e-5), grad norm relative "
+              f"{fam[name]['gnorm_rel']} (bound {tol}"
+              + (f": 2x the CPU's move under rglru_one_ulp_down, {moved}"
+                 if rec else "") + ")")
+        check(fam[name]["loss_rel"] <= 1e-5 and fam[name]["gnorm_rel"]
+              <= tol, f"{name}'s step on the card matches the CPU's")
+    stats["families"] = fam
+    launched = read_counts()
+    check(not any(launched.values()), f"the training path launches none "
+          f"of the eight kernels: {launched}")
+    print("the training path launched none of the eight kernels of the "
+          "table (their launch counts stayed 0)")
+    signal.signal(signal.SIGTERM, sigterm)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    return stats
 
 
 def main() -> int:
@@ -3226,8 +3744,33 @@ def main() -> int:
     print(f"card: {smi}")
     print("SSM path stats: " + json.dumps(ssm_stats))
 
-    # -- 27. times ----------------------------------------------------------
-    phase("27 times")
+    # -- 27. the VLM stub front end: qwen2-vl-7b at full size (M-RoPE) ----
+    phase("27 VLM serving path (embeddings, M-RoPE)")
+    model, vlm_stats = lm_phase(args, get_arch(VLM_ARCH), dev, zero_counts,
+                                read_counts)
+    del model
+    torch.cuda.empty_cache()
+    print(f"card: {smi}")
+    print("VLM path stats: " + json.dumps(vlm_stats))
+
+    # -- 28. the audio stub front end: musicgen-large at full size ---------
+    phase("28 audio serving path (embeddings, sinusoidal positions)")
+    model, audio_stats = lm_phase(args, get_arch(AUDIO_ARCH), dev,
+                                  zero_counts, read_counts,
+                                  decode_layers=AUDIO_DECODE_LAYERS)
+    del model
+    torch.cuda.empty_cache()
+    print(f"card: {smi}")
+    print("audio path stats: " + json.dumps(audio_stats))
+
+    # -- 29. the training path: qwen3-1.7b at full width and depth ---------
+    phase("29 training path")
+    train_stats = train_phase(args, dev, zero_counts, read_counts)
+    print(f"card: {smi}")
+    print("training path stats: " + json.dumps(train_stats))
+
+    # -- 30. times ----------------------------------------------------------
+    phase("30 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import from_numpy, to_numpy
 from repro_torch.core import functions as F
 from repro_torch.core.indexer import HyperplaneIndex, IndexConfig
 from repro_torch.models.layers import tree_map
@@ -106,3 +107,45 @@ def params_from_numpy(cfg, tree, *, device="cuda",
     tensors = tree_map(
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)), tree)
     return Transformer(cfg, tensors, dtype=dtype, device=dev)
+
+
+def params_to_numpy(cfg, model: Transformer) -> dict:
+    """The inverse of ``params_from_numpy``: the model's parameters as a
+    JAX-layout tree of float32 numpy arrays (``model_spec``'s structure,
+    the body restacked: ``Transformer.tree``)."""
+    if cfg != model.cfg:
+        raise ValueError(f"config {cfg.name!r} does not match the model's")
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy()
+                    .copy(), model.tree())
+
+
+def opt_state_to_numpy(state) -> dict:
+    """An ``optim.adamw`` state as the JAX package's tree of numpy arrays:
+    {"step": int32 scalar, "m": tree, "v": tree}; a bfloat16 moment as
+    its bytes (a ``V2`` array, the reference's file format; view it as
+    ml_dtypes.bfloat16), an int8 moment as a (codes, scales) tuple."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(x[k]) for k in sorted(x)}
+        if isinstance(x, (list, tuple)):
+            return tuple(conv(t) for t in x)
+        return to_numpy(x)
+    return {"step": to_numpy(state["step"]),
+            "m": conv(state["m"]), "v": conv(state["v"])}
+
+
+def opt_state_from_numpy(tree, device="cuda") -> dict:
+    """The inverse: a JAX ``init_opt_state`` / ``apply_updates`` state as
+    numpy arrays (``jax.tree.map(np.asarray, state)``; bfloat16 moments
+    as ml_dtypes or ``V2`` arrays) -> the port's state on ``device`` (the
+    step counter on the host)."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(x[k]) for k in sorted(x)}
+        if isinstance(x, (list, tuple)):
+            return [conv(t) for t in x]
+        return from_numpy(np.array(x)).to(dev)
+    return {"step": from_numpy(np.array(tree["step"], np.int32)),
+            "m": conv(tree["m"]), "v": conv(tree["v"])}

@@ -11,8 +11,6 @@ are short, so one block of scores per call.
 
 A decode write past the cache raises (the reference's
 ``dynamic_update_slice`` clamps).
-
-Not here (ROADMAP.md item 11c-iv): M-RoPE.
 """
 from __future__ import annotations
 
@@ -20,7 +18,8 @@ import math
 
 import torch
 
-from repro_torch.models.layers import (ParamSpec, apply_rope, rms_norm)
+from repro_torch.models.layers import (ParamSpec, apply_m_rope, apply_rope,
+                                       rms_norm)
 
 NEG = -1e30
 
@@ -102,17 +101,18 @@ def _project_qkv(cfg, p, x):
 
 def _rope_qk(cfg, q, k, pos):
     if cfg.m_rope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md "
-                                  "item 11c-iv)")
+        return (apply_m_rope(q, pos, cfg.rope_theta, cfg.m_rope_sections),
+                apply_m_rope(k, pos, cfg.rope_theta, cfg.m_rope_sections))
     return (apply_rope(q, pos, cfg.rope_theta),
             apply_rope(k, pos, cfg.rope_theta))
 
 
 def gqa_forward(cfg, p, x, pos, *, window=None, make_cache=False,
                 cache_len: int = 0):
-    """Train / prefill.  pos: (B, S) int.  With make_cache, the cache holds
-    the last min(alloc, S) keys and values from slot 0, alloc = cache_len
-    (min(window, cache_len) for a windowed block)."""
+    """Train / prefill.  pos: (B, S) int, or (3, B, S) for M-RoPE.  With
+    make_cache, the cache holds the last min(alloc, S) keys and values
+    from slot 0, alloc = cache_len (min(window, cache_len) for a windowed
+    block)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope_qk(cfg, q, k, pos)
@@ -134,13 +134,15 @@ def gqa_forward(cfg, p, x, pos, *, window=None, make_cache=False,
 def gqa_decode(cfg, p, x, cache, pos: int, *, window=None):
     """One-token decode.  x: (B, 1, D); cache k/v: (B, A, K, hd);
     pos: the position written this step (a Python int, uniform across the
-    batch).  A windowed cache is a ring: slot j holds the largest position
-    <= pos congruent to j mod A.  Returns (y, new cache); the cache
-    tensors are updated in place."""
+    batch; M-RoPE rotates all three streams by it).  A windowed cache is
+    a ring: slot j holds the largest position <= pos congruent to j mod
+    A.  Returns (y, new cache); the cache tensors are updated in place."""
     b = x.shape[0]
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(cfg, p, x)     # (B,1,H,hd)/(B,1,K,hd)
-    q, k = _rope_qk(cfg, q, k, torch.full((b, 1), pos, device=x.device))
+    p3 = torch.full((3, b, 1) if cfg.m_rope_sections else (b, 1), pos,
+                    device=x.device)
+    q, k = _rope_qk(cfg, q, k, p3)
     kc, vc = cache["k"], cache["v"]
     alloc = kc.shape[1]
     slot = pos % alloc if window else pos

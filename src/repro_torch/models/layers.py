@@ -7,8 +7,7 @@ package's: a projection is ``x @ w`` with w of shape (d_in, d_out), so
 weights carry across without transposes.
 
 Not here: the activation and MoE sharding helpers (GSPMD layout hints,
-with no single-device counterpart), M-RoPE (ROADMAP.md item 11c-iv) and
-the losses (item 11b).
+with no single-device counterpart).
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,14 +139,35 @@ def apply_rope(x, pos, theta: float):
     Rotates the two halves of the last dim against each other (the JAX
     package's layout): (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos).
     """
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
-    angles = pos[..., None].to(torch.float32) * freqs      # (..., S, hd/2)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)       # (hd/2,)
+    return _rotate(x, pos[..., None].to(torch.float32) * freqs)
+
+
+def _rotate(x, angles):
+    """x: (B, S, H, hd) rotated by angles (B, S, hd/2) in float32, cast
+    back to x's dtype."""
     cos = torch.cos(angles)[..., None, :]                  # over heads
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_m_rope(x, pos3, theta: float, sections: tuple[int, ...]):
+    """Qwen2-VL M-RoPE: the hd/2 frequency slots are split into
+    (temporal, height, width) sections, each rotated by its own position
+    stream.  x: (B, S, H, hd); pos3: (3, B, S)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)       # (half,)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(pos3[i][..., None].to(torch.float32)
+                     * freqs[start:start + sec])           # (B, S, sec)
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -193,3 +214,66 @@ def apply_ffn(cfg, p, x):
     else:
         h = _act(cfg, x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _token_losses(logits, labels, z_loss: float = 0.0):
+    """(per-token loss, valid mask) in float32; labels < 0 are ignored.
+    The max is detached, and the label's logit is picked by comparing a
+    vocabulary iota with the label, as the reference does."""
+    lg = logits.to(torch.float32)
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0)
+    m = lg.max(dim=-1, keepdim=True).values.detach()
+    sh = lg - m
+    lse = torch.log(torch.exp(sh).sum(dim=-1)) + m[..., 0]
+    iota = torch.arange(lg.shape[-1], device=lg.device)
+    picked = torch.where(iota == lab[..., None], sh, 0.0).sum(dim=-1) \
+        + m[..., 0]
+    loss = lse - picked
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss, valid
+
+
+def softmax_xent(logits, labels, mask=None, z_loss: float = 0.0):
+    """Mean cross-entropy in float32 over the valid tokens: labels >= 0
+    (and mask > 0 where a mask is given)."""
+    loss, valid = _token_losses(logits, labels, z_loss)
+    if mask is not None:
+        valid = valid & (mask > 0)
+    denom = torch.clamp(valid.sum(), min=1)
+    return (loss * valid).sum() / denom
+
+
+def chunked_xent(x, labels, unembed_fn, *, chunk: int = 1024,
+                 z_loss: float = 0.0):
+    """Cross-entropy over the sequence in chunks of ``chunk`` positions
+    (the whole sequence where it does not divide): per chunk only the
+    (B, c, V) logits exist, and with more than one chunk each chunk's are
+    recomputed in backward (``torch.utils.checkpoint``), so the (B, S, V)
+    logits never exist whole.  Each chunk's loss is summed over its
+    tokens; the denominator (the valid tokens) is applied at the end.
+    x: (B, S, D); labels: (B, S)."""
+    s = x.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        c = s
+
+    def one(xc, yc):
+        loss, valid = _token_losses(unembed_fn(xc), yc, z_loss)
+        return (loss * valid).sum(), valid.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    remat = s // c > 1 and torch.is_grad_enabled()
+    for i in range(0, s, c):
+        xc, yc = x[:, i:i + c], labels[:, i:i + c]
+        part, n = (checkpoint(one, xc, yc, use_reentrant=False) if remat
+                   else one(xc, yc))
+        tot = tot + part
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1)

@@ -15,7 +15,9 @@ from repro_torch.utils.device import resolve_device
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int):
-    """prefill(model, batch) -> (last-position logits (B, V), caches)."""
+    """prefill(model, batch) -> (last-position logits (B, V), caches);
+    batch as ``forward`` takes it (tokens, or embeds and M-RoPE
+    streams)."""
     @torch.inference_mode()
     def prefill(model, batch):
         logits, caches, _ = forward(cfg, model, batch, mode="prefill",
@@ -27,8 +29,8 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int):
 def make_serve_step(cfg: ArchConfig, *, sample: bool = False):
     """serve_step(model, caches, inputs, pos[, generator]) -> (next, caches).
 
-    inputs: tokens (B,); pos: the position written this step (a Python
-    int).  Greedy takes the argmax; sample=True draws each next token from
+    inputs: tokens (B,), or embeds (B, D) for the stub-front-end archs;
+    pos: the position written this step (a Python int).  Greedy takes the argmax; sample=True draws each next token from
     the softmax of the float32 logits with ``torch.multinomial`` and the
     caller's ``torch.Generator`` (its draws cannot match
     ``jax.random.categorical``'s).

@@ -2,8 +2,9 @@
 and the LM path there: the fp32 decode-vs-forward and card-vs-CPU checks at
 full width (qwen3-1.7b, and deepseek-moe-16b's MoE layer and 3 of its
 layers; the MLA, RG-LRU and SSD blocks of minicpm3-4b, recurrentgemma-2b
-and mamba2-780m, and those models cut in depth), ``ActivationIndexer``
-codes at d = 2,048.
+and mamba2-780m, and those models cut in depth; the stub front ends,
+qwen2-vl-7b and musicgen-large, cut in depth), ``ActivationIndexer``
+codes at d = 2,048, and a train step of reduced archs against the CPU.
 
 Marked ``cuda``: every test takes the ``cuda`` fixture, which skips when
 this machine has no usable card (decided when the test runs, never at
@@ -1052,3 +1053,76 @@ def test_new_families_decode_matches_forward_on_card(cuda, name, layers):
         full, _, _ = forward(cfg, model, {"tokens": tok[:, :17]})
     ref = full[:, 16]
     assert ((dec - ref).abs().max() / ref.abs().max()).item() < 3e-3
+
+
+@pytest.mark.parametrize("name,layers", [("qwen2-vl-7b", 2),
+                                         ("musicgen-large", 2)])
+def test_stub_front_ends_decode_matches_forward_on_card(cuda, name, layers):
+    """The stub front ends in fp32 on the card at full width, cut in
+    depth: embeddings in (qwen2-vl-7b with M-RoPE streams that differ,
+    the decoded position's three at its slot), a decode step after a
+    16-position prefill reproduces the teacher-forced logits (< 3e-3)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import (Transformer, decode_step, forward,
+                                    init_params, model_spec)
+    cfg = dataclasses.replace(get_arch(name), num_layers=layers)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    model = Transformer(cfg, init_params(model_spec(cfg), torch.float32,
+                                         generator=gen, device=cuda))
+    emb = torch.randn((2, 17, cfg.d_model),
+                      generator=torch.Generator().manual_seed(2)).to(cuda)
+    batch = {"embeds": emb}
+    if cfg.m_rope_sections:
+        i = torch.arange(16)
+        pos = torch.stack([torch.zeros_like(i), i // 4, i % 4])
+        pos = torch.cat([pos, torch.full((3, 1), 16)], 1)
+        batch["mrope_positions"] = pos[:, None].expand(3, 2, 17).to(cuda)
+    pf = {k: (v[:, :, :16] if k == "mrope_positions" else v[:, :16])
+          for k, v in batch.items()}
+    with strict_fp32(), torch.inference_mode():
+        _, caches, _ = forward(cfg, model, pf, mode="prefill", cache_len=32)
+        dec, _ = decode_step(cfg, model, emb[:, 16], caches, 16)
+        full, _, _ = forward(cfg, model, batch)
+    ref = full[:, 16]
+    assert ((dec - ref).abs().max() / ref.abs().max()).item() < 3e-3
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "deepseek-v3-671b",
+                                  "mamba2-780m"])
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """One AdamW train step of a reduced arch on the card against the
+    CPU, float32: the loss within 1e-5 and the gradient norm within 1e-4
+    (relative); and the loader's pinned, non-blocking copies deliver the
+    stream's batches on the card."""
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import Transformer, init_params, model_spec
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    cfg = REDUCED[name]
+    tree = init_params(model_spec(cfg), torch.float32,
+                       generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    loader = ShardedLoader(SyntheticTokenStream(cfg.vocab_size, seed=3), 4,
+                           32, device=cuda)
+    batch = next(loader)
+    loader.close()
+    ref = SyntheticTokenStream(cfg.vocab_size, seed=3).batch(4, 32)
+    assert batch["tokens"].device.type == "cuda"
+    assert np.array_equal(batch["tokens"].cpu().numpy(), ref)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = Transformer(cfg, tree_map(lambda t: t.to(dev), tree),
+                        trainable=True)
+        _, _, met = make_train_step(cfg, opt, remat=True)(
+            m, init_opt_state(m.tree(), opt),
+            {k: v.to(dev) for k, v in batch.items()})
+        out[dev.type] = {k: float(v) for k, v in met.items()}
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        a, b = out["cuda"][key], out["cpu"][key]
+        assert abs(a - b) / abs(b) <= tol, (key, a, b)

@@ -10,7 +10,9 @@ serving walkthroughs (``quickstart``, ``serve_index``, ``serve_async``,
 ``refresh_loop``), whose own assertions are the JAX examples'; ``serve_lm``
 also runs the MoE arch (reduced deepseek-moe-16b), the MLA archs
 (minicpm3-4b, deepseek-v3-671b) and the recurrent ones (recurrentgemma-2b,
-mamba2-780m).
+mamba2-780m).  ``train_lm`` runs at a few steps (its default is 200) and
+with int8 moments; it refuses the stub-front-end archs, as the JAX
+example does.
 """
 import os
 import re
@@ -162,3 +164,24 @@ def test_serve_lm_runs_each_new_family(arch):
     assert len(lines) == len(patterns), lines
     for line, pat in zip(lines, patterns):
         assert re.fullmatch(pat, line), (pat, line)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "int8"])
+def test_train_lm_example_runs_on_cpu(moment_dtype):
+    """``examples/train_lm.py``'s counterpart at 20 steps: the first half,
+    a restart from its checkpoint into a model of zeros, the second half,
+    and the example's own check that the loss improved."""
+    proc = _run_example("train_lm", "--steps", "20", "--moment-dtype",
+                        moment_dtype)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [ln for ln in proc.stdout.strip().splitlines() if ln]
+    patterns = [r"\[phase 1\] loss \d+\.\d{3} -> \d+\.\d{3}",
+                r"\[restart\] restored at step 10",
+                r"\[phase 2\] loss \d+\.\d{3} -> \d+\.\d{3} \(stragglers "
+                r"flagged: \d+\)",
+                r"OK: loss improved across a checkpoint/restart boundary"]
+    assert len(lines) == len(patterns), lines
+    for line, pat in zip(lines, patterns):
+        assert re.fullmatch(pat, line), (pat, line)
+    refused = _run_example("train_lm", "--arch", "musicgen-large")
+    assert refused.returncode != 0 and "stub frontend" in refused.stderr

@@ -4,8 +4,11 @@ deepseek-moe-16b (MoE; its reduced config routes drop-free, capacity
 factor 8.0: ``tests/test_torch_moe.py`` holds the MoE layer where tokens
 drop), the MLA archs minicpm3-4b and deepseek-v3-671b (MLA, the sigmoid
 router, the MTP head's leaves carried) and the recurrent archs
-recurrentgemma-2b (RG-LRU + windowed attention) and mamba2-780m (SSD);
-``tests/test_torch_recurrent.py`` holds the recurrent blocks alone.
+recurrentgemma-2b (RG-LRU + windowed attention) and mamba2-780m (SSD),
+and the stub front ends qwen2-vl-7b (embedding inputs, M-RoPE streams
+that differ: an image grid, then text) and musicgen-large (embedding
+inputs, sinusoidal positions); ``tests/test_torch_recurrent.py`` holds
+the recurrent blocks alone.
 
 Inputs come from a numpy seed; JAX weights (``repro.models.init_params``)
 carry across through ``repro_torch.interop.params_from_numpy``.  Relative
@@ -152,10 +155,6 @@ def test_configs_are_copies():
 def test_model_spec_matches_jax():
     for name in jreg.REDUCED:
         cfg = treg.REDUCED[name]
-        if name not in LM:
-            with pytest.raises(NotImplementedError, match="item 11"):
-                TT.model_spec(cfg)
-            continue
         jspec = jax.tree.leaves(JT.model_spec(jreg.REDUCED[name]),
                                 is_leaf=JL.is_spec)
         flat = []
@@ -581,27 +580,21 @@ def test_decode_matches_forward(models, name):
 
 
 def test_unported_archs_raise():
-    unported = [n for n in treg.REDUCED if n not in LM]
-    assert sorted(unported) == ["musicgen-large", "qwen2-vl-7b"]
-    for name in unported:
-        cfg = treg.REDUCED[name]
-        with pytest.raises(NotImplementedError, match="item 11c-iv"):
-            TT.plan_segments(cfg)
-        with pytest.raises(NotImplementedError, match="item 11c-iv"):
-            TT.init_cache(cfg, 1, 4, torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11c-iv"):
-            TT.check_supported(treg.get_arch(name))
-    # what is left: the stub front ends and the audio family's positions
-    with pytest.raises(NotImplementedError,
-                       match=r"input_mode 'embeddings', m_rope_sections "
-                             r"not ported"):
-        TT.check_supported(treg.get_arch("qwen2-vl-7b"))
-    with pytest.raises(NotImplementedError, match=r"family 'audio'"):
-        TT.check_supported(treg.get_arch("musicgen-large"))
+    """Every config of the registry is in the port (the stub front ends
+    since their M-RoPE, embedding inputs and audio positions landed);
+    only a block kind outside ``KINDS`` is refused."""
+    for name in treg.ARCHS:
+        TT.check_supported(treg.get_arch(name))
+        TT.check_supported(treg.REDUCED[name])
+        TT.plan_segments(treg.REDUCED[name])
+    odd = dataclasses.replace(treg.REDUCED["qwen3-1.7b"],
+                              block_pattern=("conv",))
+    with pytest.raises(NotImplementedError, match="block kind.*'conv'"):
+        TT.check_supported(odd)
+    with pytest.raises(NotImplementedError, match="'conv'"):
+        TT.init_cache(odd, 1, 4, torch.float32, device="cpu")
     with pytest.raises(ValueError, match="unknown block kind"):
         TT.block_spec(treg.REDUCED["mamba2-780m"], "conv")
-    for name in LM:
-        TT.check_supported(treg.get_arch(name))
 
 
 def test_params_from_numpy_checks_every_leaf(models):
@@ -677,3 +670,200 @@ def test_init_params_scales_in_place():
         scale = sp.scale or 1.0 / np.sqrt(max(sp.shape[0], 1))
         z = torch.randn(sp.shape, generator=gen, dtype=torch.float32)
         assert torch.equal(got, (scale * z).to(torch.bfloat16)), sp
+
+
+# -- the stub front ends: qwen2-vl-7b (M-RoPE), musicgen-large (audio) -------
+
+STUB = ("qwen2-vl-7b", "musicgen-large")
+
+
+@pytest.fixture(scope="module")
+def stub_models():
+    """name -> (cfg, JAX params, port Transformer), the reduced stub-front-
+    end configs."""
+    out = {}
+    for i, name in enumerate(STUB):
+        cfg = jreg.REDUCED[name]
+        jp = JL.init_params(jax.random.PRNGKey(20 + i), JT.model_spec(cfg),
+                            jnp.float32)
+        tm = interop.params_from_numpy(treg.REDUCED[name],
+                                       jax.tree.map(np.asarray, jp),
+                                       device="cpu")
+        out[name] = (cfg, jp, tm)
+    return out
+
+
+def grid_positions(b, s, grid=(2, 4)):
+    """(3, B, S) M-RoPE streams as a VLM builds them: the first gh x gw
+    positions an image grid (t 0, h = i // gw, w = i % gw), the text
+    after it from the grid's largest position + 1 in all three streams."""
+    gh, gw = grid
+    n = gh * gw
+    i = np.arange(n)
+    img = np.stack([np.zeros(n), i // gw, i % gw]).astype(np.int64)
+    start = img.max() + 1
+    txt = np.broadcast_to(np.arange(start, start + s - n), (3, s - n))
+    pos = np.concatenate([img, txt], axis=1)
+    return np.broadcast_to(pos[:, None, :], (3, b, s)).copy()
+
+
+def stub_batch(cfg, seed, s=S):
+    """numpy inputs of a stub-front-end arch: embeds (B, s, D) and, with
+    M-RoPE, streams that differ (``grid_positions``)."""
+    rng = np.random.default_rng(seed)
+    out = {"embeds": rng.normal(size=(B, s, cfg.d_model)).astype(np.float32)}
+    if cfg.m_rope_sections:
+        out["mrope_positions"] = grid_positions(B, s)
+    return out
+
+
+def as_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def as_torch(batch, dtype=torch.float32):
+    return {k: (t(v) if v.dtype.kind in "iu" else t(v).to(dtype))
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("sections,hd", [((4, 6, 6), 32),
+                                         ((16, 24, 24), 128)])
+def test_m_rope_matches_jax(sections, hd):
+    rng = np.random.default_rng(30)
+    x = rng.normal(size=(2, 7, 3, hd)).astype(np.float32)
+    pos3 = rng.integers(0, 4000, (3, 2, 7))
+    got = TL.apply_m_rope(t(x), t(pos3), 1e6, sections)
+    assert rel(got, JL.apply_m_rope(x, pos3, 1e6, sections)) <= 1e-5
+    # equal streams are plain RoPE
+    same = np.broadcast_to(pos3[0], (3, 2, 7)).copy()
+    assert torch.allclose(TL.apply_m_rope(t(x), t(same), 1e6, sections),
+                          TL.apply_rope(t(x), t(pos3[0]), 1e6), atol=0)
+    xb = t(x).to(torch.bfloat16)
+    assert TL.apply_m_rope(xb, t(pos3), 1e6, sections).dtype == \
+        torch.bfloat16
+    with pytest.raises(ValueError, match="sections"):
+        TL.apply_m_rope(t(x), t(pos3), 1e6, (4, 6, 5))
+
+
+def test_sinusoidal_matches_jax():
+    """Within two float32 ulp of the largest angle: torch's and XLA's exp
+    round the frequencies apart by an ulp, which moves an angle of ~300 by
+    ~3e-5 before its sin and cos."""
+    pos = np.arange(0, 300, 7)
+    got = TT._sinusoidal(t(pos), 128).numpy()
+    want = np.asarray(JT._sinusoidal(jnp.asarray(pos), 128))
+    assert np.abs(got - want).max() <= 2 * np.spacing(np.float32(pos.max()))
+    assert np.abs(got[:3] - want[:3]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("name", STUB)
+def test_stub_forward_matches_jax(stub_models, name):
+    cfg, jp, tm = stub_models[name]
+    batch = stub_batch(cfg, 31)
+    jl, _, jaux = JT.forward(cfg, jp, as_jax(batch))
+    tl, caches, taux = TT.forward(tm.cfg, tm, as_torch(batch))
+    assert caches is None
+    for what, got, want in (("logits", tl, jl),
+                            ("normed", taux["normed"], jaux["normed"]),
+                            ("hidden", taux["hidden"], jaux["hidden"])):
+        assert rel(got, want) <= 1e-4, what
+    if cfg.m_rope_sections:
+        # without streams the three are arange(S), as in the reference
+        plain = {"embeds": batch["embeds"]}
+        jl0, _, _ = JT.forward(cfg, jp, as_jax(plain))
+        tl0, _, _ = TT.forward(tm.cfg, tm, as_torch(plain))
+        assert rel(tl0, jl0) <= 1e-4
+        assert rel(tl0, tl.detach().numpy()) > 1e-3   # the streams matter
+
+
+@pytest.mark.parametrize("name", STUB)
+def test_stub_prefill_then_decode_matches_jax(stub_models, name):
+    """Prefill half the embeddings (the M-RoPE streams cut on their
+    sequence axis), then two decode steps fed embeddings: the logits and
+    every layer's cache against JAX's."""
+    cfg, jp, tm = stub_models[name]
+    batch = stub_batch(cfg, 32)
+    half = S // 2
+    pf = {"embeds": batch["embeds"][:, :half]}
+    if "mrope_positions" in batch:
+        pf["mrope_positions"] = batch["mrope_positions"][:, :, :half]
+    emb = batch["embeds"]
+    _, jc, _ = JT.forward(cfg, jp, as_jax(pf), mode="prefill", cache_len=S)
+    layers = jax_layer_caches(jc)
+    jd, jc = JT.decode_step(cfg, jp, jnp.asarray(emb[:, half]), jc, half)
+    jd2, _ = JT.decode_step(cfg, jp, jnp.asarray(emb[:, half + 1]), jc,
+                            half + 1)
+    want = [jd, jd2] + [layer[k] for layer in layers for k in sorted(layer)]
+    _, tc, _ = TT.forward(tm.cfg, tm, as_torch(pf), mode="prefill",
+                          cache_len=S)
+    cache_got = [layer[k].clone() for layer in tc for k in sorted(layer)]
+    td, tc = TT.decode_step(tm.cfg, tm, t(emb[:, half]), tc, half)
+    td2, _ = TT.decode_step(tm.cfg, tm, t(emb[:, half + 1]), tc, half + 1)
+    got = [td, td2] + cache_got
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert rel(g, w) <= 1e-4, (i, rel(g, w))
+
+
+@pytest.mark.parametrize("name", STUB)
+def test_stub_decode_matches_forward(stub_models, name):
+    """The port's decode with caches reproduces its teacher-forced logits;
+    decode rotates all three M-RoPE streams by the slot position, so the
+    forward's streams at that position are (pos, pos, pos)."""
+    _, _, tm = stub_models[name]
+    cfg = tm.cfg
+    batch = as_torch(stub_batch(cfg, 33))
+    half = S // 2
+    pf = {"embeds": batch["embeds"][:, :half]}
+    if cfg.m_rope_sections:
+        batch["mrope_positions"][:, :, half] = half
+        pf["mrope_positions"] = batch["mrope_positions"][:, :, :half]
+    _, caches, _ = TT.forward(cfg, tm, pf, mode="prefill", cache_len=S)
+    dec, _ = TT.decode_step(cfg, tm, batch["embeds"][:, half], caches, half)
+    full, _, _ = TT.forward(cfg, tm, batch)
+    assert rel(dec, full[:, half].numpy()) < 3e-3
+
+
+@pytest.mark.parametrize("name", STUB)
+def test_stub_bf16_matches_jax_bf16(stub_models, name):
+    """bf16 weights and inputs: forward logits, aux["normed"] and a decode
+    step within the bf16 control (module docstring), JAX op by op."""
+    cfg, jp, _ = stub_models[name]
+    jp16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jp)
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp16)
+    tm = interop.params_from_numpy(treg.REDUCED[name],
+                                   jax.tree.map(np.asarray, jp),
+                                   device="cpu", dtype=torch.bfloat16)
+    batch = stub_batch(cfg, 34)
+    # bf16 inputs on both sides
+    batch["embeds"] = np.asarray(jnp.asarray(batch["embeds"], jnp.bfloat16)
+                                 .astype(jnp.float32))
+    half = S // 2
+    pf = {k: (v[:, :half] if k == "embeds" else v[:, :, :half])
+          for k, v in batch.items()}
+
+    def run_jax(params, dt):
+        jb = {k: (jnp.asarray(v, dt) if k == "embeds" else jnp.asarray(v))
+              for k, v in batch.items()}
+        jpf = {k: (jnp.asarray(v, dt) if k == "embeds" else jnp.asarray(v))
+               for k, v in pf.items()}
+        with jax.disable_jit():
+            lg, _, aux = JT.forward(cfg, params, jb)
+            _, c, _ = JT.forward(cfg, params, jpf, mode="prefill",
+                                 cache_len=S)
+            dec, _ = JT.decode_step(cfg, params, jb["embeds"][:, half], c,
+                                    half)
+        return lg, aux["normed"], dec
+
+    j16, j32 = run_jax(jp16, jnp.bfloat16), run_jax(jp32, jnp.float32)
+    tb = as_torch(batch, torch.bfloat16)
+    lg, _, aux = TT.forward(tm.cfg, tm, tb)
+    _, c, _ = TT.forward(tm.cfg, tm, as_torch(pf, torch.bfloat16),
+                         mode="prefill", cache_len=S)
+    dec, _ = TT.decode_step(tm.cfg, tm, tb["embeds"][:, half], c, half)
+    for what, got, want16, want32 in zip(
+            ("logits", "normed", "decode logits"), (lg, aux["normed"], dec),
+            j16, j32):
+        assert str(want16.dtype) == "bfloat16" and got.dtype == torch.bfloat16
+        control = rel(want16.astype(jnp.float32), want32)
+        assert rel(got.float(), want16.astype(jnp.float32)) <= control, what
