@@ -53,7 +53,7 @@ Then two more paths at full size:
   1,000,000 unlabelled rows behind ``HashQueryService(mode="scan")``; its
   healthy, fail-over, degraded and recovered (after 10,000 inserts and
   5,000 deletes with a shard down) answers checked against fresh indexes
-  over the covered rows, then a ``FaultPlan.seeded`` soak of 64
+  over the covered rows, then a ``FaultPlan.seeded`` soak of 24
   micro-batches with writes.
 
 Then the row-sharded scan (``mesh=``), S shards co-located on the card:
@@ -134,7 +134,22 @@ step-20 checkpoint into a model of zeros and repeats steps 21-40 to the
 uninterrupted run's losses; remat and 2 microbatches against the plain
 step; one step at 2 layers on the card against the CPU; one step of the
 reduced MoE, MLA + MTP, RG-LRU and SSD archs card against CPU; an
-int8-moment run.  No phase from 21 on launches any of the eight kernels.
+int8-moment run; the allocator's peak of one step above what was
+allocated before it.  No phase from 21 on launches any of the eight
+kernels.
+
+Then (phase 30) the dry-run account (``repro_torch.launch.dryrun``, the
+step on the meta device under ``launch.op_stats.OpCounter``) of phase
+29's train cell and phase 19's decode cell, each held to one step on the
+card under the same counter: the same FLOPs exactly, the train step's
+transient peak within 10% of the allocator's, each measured p50 at
+least 0.95 of the account's floor.  Phase 31 holds the launch contracts
+(``repro_torch.kernels.contracts``) to the built libraries: every
+``*_fits`` export over a sweep of (W, block_n), every launch of the
+contracts' sweep against the library's ``*_plan`` export (grid, threads,
+dynamic shared memory), and the static shared memory of the ptxas
+report.  Phase 12's replays of one captured bit loop run under
+``utils.captures.CaptureCounter.assert_no_capture``.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON reports kernels 1, 2, 4 and 8 with
@@ -175,7 +190,9 @@ NG_D = 26_214
 # is down, and the seeded fault soak's micro-batches
 REFRESH_INSERTS, REFRESH_INSERT_ROWS, REFRESH_DELETES = 20_000, 500, 1_000
 CLUSTER_BATCHES, CLUSTER_INSERTS, CLUSTER_DELETES = 32, 10_000, 5_000
-SOAK_BATCHES = 64
+# the seeded soak: its micro-batches, and the first calls of each replica
+# that its faults fall in (about three a micro-batch, so that they fire)
+SOAK_BATCHES, SOAK_HORIZON = 24, 75
 # the sharded phase: rows inserted into the LSM index's delta (past
 # lsm_delta_fused_rows, so the delta scans on the kernel route)
 SHARD_INSERTS = 5_000
@@ -228,12 +245,13 @@ INT8_STEPS = 8
 ACT_N, ACT_S, ACT_BATCH = 8192, 128, 64
 ACT_PROBES, ACT_LABELLED, ACT_SCAN_L = 32, 64, 256
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
-# cores, bf16 on the tensor cores (dense); popcount issues 16 results per
-# clock per SM (CUDA programming guide, compute capability 9.0), at the
-# card's maximum SM clock.
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-BF16_FLOP_S = 989e12
+# cores, bf16 on the tensor cores (dense), from the dry-run's analysis
+# (one copy); popcount issues 16 results per clock per SM (CUDA
+# programming guide, compute capability 9.0), at the card's maximum SM
+# clock.
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.analysis import (  # noqa: E402
+    BF16_FLOP_S, FP32_FLOP_S, HBM_BYTES_S)
 POPC_PER_CLK_SM = 16
 
 
@@ -1562,6 +1580,191 @@ def activation_phase(args, cfg, model, dev, zero_counts, read_counts,
     return launches, stats
 
 
+def card_step(dev, fn) -> dict:
+    """fn run on dev twice: on its own, for the allocator's peak above
+    what was allocated before it (on the card), then under the dry-run
+    account's counter (``launch.op_stats.OpCounter`` over dev's ops).
+    Returns {"peak_delta_bytes", "flops_by_dtype", "launches",
+    "transient_peak_bytes", "eager_bytes"}."""
+    import torch
+    from repro_torch.launch.op_stats import OpCounter
+    out = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out["peak_delta_bytes"] = torch.cuda.max_memory_allocated() - before
+    with OpCounter(dev.type) as counter:
+        fn()
+        _sync(torch, dev)
+    out.update(flops_by_dtype=dict(counter.flops_by_dtype),
+               launches=counter.launches,
+               transient_peak_bytes=counter.peak_bytes,
+               eager_bytes=counter.eager_bytes)
+    return out
+
+
+def account_phase(lm_cfg, train_stats, lm_stats) -> dict:
+    """Phase 30: the dry-run account of phase 29's train cell and phase
+    19's decode cell on one device, against the card's step of each (its
+    ``card_step``): FLOPs equal exactly; the train step's transient peak
+    within 10% of the allocator's peak above what the step started with
+    (the decode step's, tens of MB, printed beside it); each measured p50
+    at least 0.95 of the account's floor.  Returns the readings."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.rules import MeshShape
+    one = MeshShape(("data", "model"), (1, 1))
+    cells = {
+        "train": (get_arch(TRAIN_ARCH),
+                  ShapeConfig("phase29", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                  dict(dtype=torch.float32, remat=False, num_microbatches=1,
+                       opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                                           total_steps=TRAIN_STEPS)),
+                  train_stats, "step_p50_ms", "step_kernels", "bound_ms"),
+        "decode": (lm_cfg, ShapeConfig("phase19", LM_PROMPT + LM_GEN,
+                                       LM_BATCH, "decode"),
+                   dict(dtype=torch.bfloat16), lm_stats, "decode_p50_ms",
+                   "decode_kernels", "decode_bound_ms"),
+    }
+    out = {}
+    for name, (cfg, shape, kw, stats, p50_key, prof_key, bound_key) \
+            in cells.items():
+        counts = dryrun.count_step(cfg, shape, **kw)
+        rec = dryrun.record(dryrun.account(cfg, shape, one, counts))
+        card = stats["card_step"]
+        floor_ms = 1e3 * rec["roofline"]["step_floor_s"]
+        p50 = stats.get(p50_key, float("nan"))
+        r = dict(flops_by_dtype=counts["flops_by_dtype"],
+                 card_flops_by_dtype=card["flops_by_dtype"],
+                 launches=counts["launches"],
+                 card_counter_launches=card["launches"],
+                 profiler_launches=stats.get(prof_key),
+                 transient_peak_bytes=counts["transient_peak"],
+                 card_counter_peak_bytes=card["transient_peak_bytes"],
+                 card_peak_delta_bytes=card.get("peak_delta_bytes"),
+                 eager_bytes=counts["eager_bytes"],
+                 card_eager_bytes=card["eager_bytes"],
+                 min_bytes=rec["roofline"]["min_bytes"],
+                 floor_ms=floor_ms, bound=rec["roofline"]["bound"],
+                 compute_ms=1e3 * rec["roofline"]["compute_s"],
+                 memory_ms=1e3 * rec["roofline"]["memory_s"],
+                 p50_ms=p50, floor_share=floor_ms / p50,
+                 hand_bound_ms=stats.get(bound_key),
+                 count_s=counts["count_s"])
+        out[name] = r
+        print(f"{name} ({cfg.name}, {shape.global_batch} x "
+              f"{shape.seq_len}, {kw['dtype']}): account FLOPs "
+              f"{json.dumps(r['flops_by_dtype'])}, the card's "
+              f"{json.dumps(r['card_flops_by_dtype'])}; launches: account "
+              f"{r['launches']}, the card's counter "
+              f"{r['card_counter_launches']}, torch.profiler "
+              f"{r['profiler_launches']}; transient peak: account "
+              f"{r['transient_peak_bytes'] / 2**30:.4f} GiB, the card's "
+              f"counter {r['card_counter_peak_bytes'] / 2**30:.4f} GiB, "
+              f"the allocator's "
+              + (f"{r['card_peak_delta_bytes'] / 2**30:.4f} GiB"
+                 if r["card_peak_delta_bytes"] is not None else "n/a")
+              + f"; floor {floor_ms:.4f} ms ({r['bound']}: compute "
+              f"{r['compute_ms']:.4f}, memory {r['memory_ms']:.4f}) beside "
+              f"the hand bound {r['hand_bound_ms']} ms; measured p50 "
+              f"{p50:.3f} ms: floor share {r['floor_share']:.4f}")
+        check(r["flops_by_dtype"] == r["card_flops_by_dtype"],
+              f"the {name} step's FLOPs on the card equal the account's")
+        check(p50 >= 0.95 * floor_ms, f"the {name} step's p50 {p50} ms is "
+              f"at least 0.95 of the account's floor {floor_ms} ms")
+    peak = out["train"]["card_peak_delta_bytes"]
+    if peak is not None:
+        gap = abs(out["train"]["transient_peak_bytes"] - peak) / peak
+        out["train"]["peak_rel_gap"] = gap
+        check(gap <= 0.10, f"the train step's transient peak is within 10% "
+              f"of the allocator's ({gap:.4f})")
+    return out
+
+
+def contracts_phase(build_mod) -> dict:
+    """Phase 31: the launch contracts reckoned without a card
+    (``kernels.contracts``) against the built libraries: their sweep has
+    no finding, every ``*_fits`` export answers as reckoned over W 1-128
+    and block_n up to 131,072 (``distance_fits`` over W 1-4,096), every
+    launch of the sweep is the one the library's ``*_plan`` export
+    reports, and each kernel's static shared memory is the ptxas
+    report's."""
+    import re
+    from repro_torch.kernels import bilinear_hash, contracts, hamming
+    from repro_torch.kernels import lbh_grad
+    findings = contracts.run()
+    print(f"contract sweep: {len(contracts.sweep())} cases, findings "
+          f"{findings}")
+    check(not findings, "the launch contracts hold over the sweep")
+    libs = {name: build_mod.load(name, hamming._SIGNATURES[name])
+            for name in (hamming.LIBRARY, hamming.FUSED_LIBRARY,
+                         hamming.DISTANCE_LIBRARY)}
+    exports = ((hamming.LIBRARY, "topk_hist_fits", contracts.topk_hist_fits),
+               (hamming.LIBRARY, "topk_hist_dma_fits",
+                contracts.topk_hist_dma_fits),
+               (hamming.FUSED_LIBRARY, "topk_fused_fits",
+                contracts.topk_fused_fits))
+    block_ns = (1, 32, 100, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
+                32768, 65536, 65537, 131072)
+    points, wrong = 0, []
+    for lib, name, fits in exports:
+        for w in range(1, 129):
+            for bn in block_ns:
+                points += 1
+                got = bool(getattr(libs[lib], name)(w, bn))
+                if got != fits(w, bn):
+                    wrong.append((name, w, bn, got))
+    for w in range(1, 4097):
+        points += 1
+        got = bool(libs[hamming.DISTANCE_LIBRARY].distance_fits(w))
+        if got != contracts.distance_fits(w):
+            wrong.append(("distance_fits", w, got))
+    widest = {name: contracts.widest_w(fits, 8192, 128)
+              for _, name, fits in exports}
+    widest["distance_fits"] = max(w for w in range(1, 4097)
+                                  if contracts.distance_fits(w))
+    print(f"*_fits exports against the reckoning: {points} points, "
+          f"{len(wrong)} differ {wrong[:5]}; widest W (scans at block_n "
+          f"8,192, up to 128; distances): {json.dumps(widest)}")
+    check(not wrong, "every *_fits export answers as the contracts reckon")
+    plans = contracts.compare_plans()
+    print(f"*_plan exports against the reckoned launches: "
+          f"{plans['launches']} launches, {len(plans['differ'])} differ "
+          f"{plans['differ'][:5]}; kernel 3's blocks per SM, runtime / "
+          f"bound (cases): {json.dumps(plans['dma_per_sm'])}")
+    check(plans["launches"] > 150 and not plans["differ"],
+          "every launch of the sweep is the one its library plans")
+    smem = {}
+    for lib, frag in ((bilinear_hash.FACTORS_LIBRARY, "bilinear_hash_kernel"),
+                      (bilinear_hash.LIBRARY, "bh_seeded_product_kernel"),
+                      (bilinear_hash.LIBRARY, "bh_seeded_generate_kernel"),
+                      (lbh_grad.LIBRARY, "lbh_chain_kernel"),
+                      (hamming.LIBRARY, "topk_hist_kernel"),
+                      (hamming.LIBRARY, "topk_hist_dma_kernel"),
+                      (hamming.FUSED_LIBRARY, "topk_fused_kernel"),
+                      (hamming.DISTANCE_LIBRARY, "distance_kernel"),
+                      (hamming.DISTANCE_LIBRARY, "distance_batch_kernel")):
+        lines = [ln for ln in ptxas_lines(build_mod.build_log(lib), frag)
+                 if "registers" in ln]
+        got = sorted({int(m.group(1)) if (m := re.search(
+            r"(\d+) bytes smem", ln)) else 0 for ln in lines})
+        smem[frag] = got
+        check(got == [contracts.STATIC_SMEM[frag]],
+              f"{frag}: static shared memory {got} B in the ptxas report, "
+              f"{contracts.STATIC_SMEM[frag]} reckoned")
+    print("static shared memory, ptxas report = reckoned (bytes): "
+          + json.dumps(smem))
+    return {"points": points, "plans": plans["launches"],
+            "dma_per_sm": plans["dma_per_sm"], "widest": widest,
+            "static_smem": smem}
+
+
 def train_bounds(cfg, n_params, batch, seq, itemsize=4):
     """The least time of one float32 train step on the card: 6 N tokens
     flops (forward and backward of every weight) plus the attention
@@ -1737,6 +1940,12 @@ def train_phase(args, dev, zero_counts, read_counts):
               f"{busy:.3f} ms, {stats['step_kernels']} kernel launches; "
               f"largest: " + json.dumps({k[:60]: round(v[0], 3)
                                         for k, v in top}))
+    # one step alone for the allocator's peak, then one under the dry-run
+    # account's counter (phase 30)
+    stats["card_step"] = card_step(dev, lambda: step_fn(
+        model, tr.opt_state, batch))
+    print("one train step on its own and under the account's counter: "
+          + json.dumps(stats["card_step"]))
     bound = train_bounds(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     stats.update(bound_ms=bound[0], bound_matmul_ms=bound[1],
                  bound_adamw_ms=bound[2])
@@ -1950,7 +2159,6 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import learning, search
     from repro_torch.core.functions import (_sgn, bilinear_signs,
                                             seeded_projections, strict_fp32,
@@ -1984,6 +2192,7 @@ def main() -> int:
     from repro_torch.serving.service import HashQueryService
     from repro_torch.utils.bits import (flip_packed, from_numpy_u32,
                                         to_numpy_u32)
+    from repro_torch.utils.captures import CaptureCounter
 
     dev = torch.device("cuda")
 
@@ -2941,14 +3150,19 @@ def main() -> int:
           "the graphed loop's u, v and costs equal the eager loop's (or lie "
           "within 1e-3 of them, relative)")
     bit_times = {}
+    captures = CaptureCounter()
+    before = captures.snapshot()
     for label, graphed, reps in (("eager", False, 2), ("graphed", True, 5)):
         walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            one_bit(graphed)
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
+        # the loop was captured once: its replays, as learn_lbh's bits
+        # after the first, must capture no CUDA graph
+        with captures.assert_no_capture():
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_bit(graphed)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
         # the profiler slows the host, so it gives the device time only
         busy_ms, prof = device_profile(torch, lambda g=graphed: one_bit(g),
                                        ("lbh_chain_kernel",))
@@ -2958,6 +3172,9 @@ def main() -> int:
             idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
             chain_ms=kernel_device_ms(prof, "lbh_chain_kernel"),
             kernels=sum(k for _, k in prof.values()))
+    print(f"capture-stable window (2 eager bits, 5 replays of the captured "
+          f"loop): new captures {captures.deltas(before)}, counters "
+          f"{captures.snapshot()}")
     wall_ms = float(np.median(bit_times["graphed"]["wall_ms"]))
     eager_ms = float(np.median(bit_times["eager"]["wall_ms"]))
     # phase 10's whole fit (graphed) against learn_lbh's bit loop run
@@ -3602,7 +3819,8 @@ def main() -> int:
     # the seeded soak: scripted kills, flaps, drops and delays under
     # traffic and writes; any uncaught exception fails the run
     t0 = time.perf_counter()
-    soak_plan = FaultPlan.seeded(args.seed, 2, 2, horizon_calls=200)
+    soak_plan = FaultPlan.seeded(args.seed, 2, 2,
+                                 horizon_calls=SOAK_HORIZON)
     soak = ShardReplicaRouter(ccfg, shards=2, replicas=2,
                               fault_plan=soak_plan).fit(x_base)
     for s in range(2):
@@ -3661,6 +3879,19 @@ def main() -> int:
     from repro_torch.models.layers import tree_map
     lm_cfg = get_arch(LM_ARCH)
     model, lm_stats = lm_phase(args, lm_cfg, dev, zero_counts, read_counts)
+    # one decode step at phase 19's shape, on its own and under the
+    # dry-run account's counter (phase 30)
+    from repro_torch.models import init_cache
+    from repro_torch.serve.engine import make_serve_step
+    caches = init_cache(lm_cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                        torch.bfloat16, device=dev)
+    tok = torch.zeros(LM_BATCH, dtype=torch.int32, device=dev)
+    serve = make_serve_step(lm_cfg)
+    lm_stats["card_step"] = card_step(dev, lambda: serve(
+        model, caches, tok, LM_PROMPT + LM_GEN - 1))
+    print("one decode step on its own and under the account's counter: "
+          + json.dumps(lm_stats["card_step"]))
+    del caches, tok
 
     # -- 20. the activation index path over the LM's activations ----------
     phase("20 activation index path")
@@ -3769,8 +4000,18 @@ def main() -> int:
     print(f"card: {smi}")
     print("training path stats: " + json.dumps(train_stats))
 
-    # -- 30. times ----------------------------------------------------------
-    phase("30 times")
+    # -- 30. the dry-run account against the card -------------------------
+    phase("30 dry-run account vs the card")
+    account = account_phase(lm_cfg, train_stats, lm_stats)
+    print(f"card: {smi}")
+    print("dry-run account vs the card: " + json.dumps(account))
+
+    # -- 31. the launch contracts against the built libraries --------------
+    phase("31 launch contracts")
+    print("launch contracts: " + json.dumps(contracts_phase(_build)))
+
+    # -- 32. times ----------------------------------------------------------
+    phase("32 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []

@@ -30,11 +30,13 @@ LIBRARY = "bilinear_hash_seeded"
 _SIGNATURES = {
     "bh_seeded_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "bh_seeded_plan": (ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 FACTORS_LIBRARY = "bilinear_hash"
 _FACTORS_SIGNATURES = {
     "bh_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "bh_plan": (ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
 
 

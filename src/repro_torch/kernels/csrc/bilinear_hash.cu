@@ -53,14 +53,24 @@ struct Kernel {
 extern "C" int bh_launch(const void* x, const void* u, const void* v,
                          void* codes, int n, int d, int k, void* stream) {
   if (n < 1 || d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = bprod::device_sms(&sms);
   if (err != cudaSuccess) return err;
   const bprod::Plan p = bprod::choose_plan(n, k, 1, sms);
   return bprod::launch_product<Kernel>(
       p, static_cast<const float*>(x), static_cast<const float*>(u),
       static_cast<const float*>(v), static_cast<uint32_t*>(codes), n, d, k,
       1, k, k, static_cast<cudaStream_t>(stream));
+}
+
+// The launch bh_launch makes for these arguments, without making it
+// (launch_plan.cuh).  Returns 0, or the error with
+// which the launch refuses.
+extern "C" int bh_plan(int n, int d, int k, int64_t* out) {
+  if (n < 1 || d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = bprod::device_sms(&sms);
+  if (err != cudaSuccess) return err;
+  bprod::put_plan(out, bprod::choose_plan(n, k, 1, sms));
+  return 0;
 }

@@ -40,6 +40,12 @@ constexpr uint32_t kGold = 0x9E3779B9u;
 constexpr uint32_t kFnv = 0x01000193u;
 // the workspace pool keeps this much freed memory for the next call
 constexpr uint64_t kPoolKeepBytes = 64ull << 20;
+constexpr int kGenThreads = 256;        // threads of a generation block
+
+// Blocks of a generation launch over elems factor elements of U (and V).
+unsigned gen_blocks(int64_t elems) {
+  return static_cast<unsigned>((elems + kGenThreads - 1) / kGenThreads);
+}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -65,7 +71,7 @@ __device__ __forceinline__ float seeded_gaussian(uint32_t s, uint32_t row,
 
 // u, v: (d, G kp); element (row, g kp + j) is table g's factor (row, j)
 // for j < k, else 0.
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kGenThreads)
 bh_seeded_generate_kernel(const uint32_t* __restrict__ seeds,
                           float* __restrict__ u, float* __restrict__ v,
                           int d, int k, int kp, int groups) {
@@ -133,8 +139,7 @@ extern "C" int bh_seeded_launch(const void* x, const void* seeds,
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
+  if ((err = bprod::device_sms(&sms)) != cudaSuccess) return err;
   if ((err = keep_pool(dev)) != cudaSuccess) return err;
   const bprod::Plan p = bprod::choose_plan(n, k, groups, sms);
   const int64_t elems = static_cast<int64_t>(d) * p.cols;
@@ -144,8 +149,7 @@ extern "C" int bh_seeded_launch(const void* x, const void* seeds,
   if (err != cudaSuccess) return err;
   float* u = work;
   float* v = work + elems;
-  const int64_t gen_blocks = (elems + 255) / 256;
-  bh_seeded_generate_kernel<<<static_cast<unsigned>(gen_blocks), 256, 0, s>>>(
+  bh_seeded_generate_kernel<<<gen_blocks(elems), kGenThreads, 0, s>>>(
       static_cast<const uint32_t*>(seeds), u, v, d, k, p.kp, groups);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
@@ -155,4 +159,22 @@ extern "C" int bh_seeded_launch(const void* x, const void* seeds,
   }
   const cudaError_t freed = cudaFreeAsync(work, s);
   return err != cudaSuccess ? err : freed;
+}
+
+// The two launches bh_seeded_launch makes for these arguments, without
+// making them: the generation's six numbers (launch_plan.cuh), then the
+// product's, into out[0..11].  Returns 0, or the error with which
+// the launch refuses.
+extern "C" int bh_seeded_plan(int n, int d, int k, int groups, int64_t* out) {
+  if (n < 1 || d < 1 || k < 1 || groups < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  const cudaError_t err = bprod::device_sms(&sms);
+  if (err != cudaSuccess) return err;
+  const bprod::Plan p = bprod::choose_plan(n, k, groups, sms);
+  lplan::put(out, gen_blocks(static_cast<int64_t>(d) * p.cols), 1, 1,
+             kGenThreads, 0, 0);
+  bprod::put_plan(out + 6, p);
+  return 0;
 }

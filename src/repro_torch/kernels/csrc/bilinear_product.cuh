@@ -47,6 +47,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
+
 namespace bprod {
 
 constexpr int kThreads = 256;
@@ -366,6 +368,21 @@ __device__ __forceinline__ void product_block(
       atomicOr(dst, bits);
     }
   }
+}
+
+// The multiprocessors of the current device, which choose_plan fills.
+inline cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Writes the product launch of plan p as the *_plan exports give it
+// (launch_plan.cuh).
+inline void put_plan(int64_t* out, const Plan& p) {
+  lplan::put(out, p.row_blocks, p.passes, 1, kThreads,
+             static_cast<int64_t>(p.smem), 0);
 }
 
 // Launch the product of plan p on `stream` through the kernel K<TM,

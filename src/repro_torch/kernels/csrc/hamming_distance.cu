@@ -26,6 +26,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -84,16 +86,36 @@ distance_batch_kernel(const uint32_t* __restrict__ codes,
   distances<kChunk>(codes, queries, out, smem, n, w, nq);
 }
 
+// A launch's grid (a block per kThreads rows, by chunks of queries) and
+// dynamic shared memory: the queries of a chunk.
+struct Shape {
+  int blocks, chunks;
+  size_t smem;
+};
+
+Shape single_shape(int n, int w) {
+  return {(n + kThreads - 1) / kThreads, 1, smem_bytes(w, 1)};
+}
+
+Shape batch_shape(int n, int w, int nq) {
+  return {(n + kThreads - 1) / kThreads, (nq + kChunk - 1) / kChunk,
+          smem_bytes(w, nq < kChunk ? nq : kChunk)};
+}
+
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int n, int chunks, size_t smem,
-                   cudaStream_t stream, Args... args) {
+cudaError_t launch(Kernel kernel, Shape sh, cudaStream_t stream,
+                   Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(sh.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kThreads - 1) / kThreads, chunks);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<dim3(sh.blocks, sh.chunks), kThreads, sh.smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+void put_plan(int64_t* out, Shape sh) {
+  lplan::put(out, sh.blocks, sh.chunks, 1, kThreads,
+             static_cast<int64_t>(sh.smem), 0);
 }
 
 }  // namespace
@@ -110,8 +132,7 @@ extern "C" int distance_launch(const void* codes, const void* query,
                                void* out, int n, int w, void* stream) {
   if (!distance_fits(w)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch(
-      distance_kernel, n, 1, smem_bytes(w, 1),
-      static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(codes),
+      distance_kernel, single_shape(n, w), static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(codes),
       static_cast<const uint32_t*>(query), static_cast<int32_t*>(out), n, w));
 }
 
@@ -121,11 +142,24 @@ extern "C" int distance_batch_launch(const void* codes, const void* queries,
                                      void* out, int n, int w, int nq,
                                      void* stream) {
   if (!distance_fits(w)) return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = (nq + kChunk - 1) / kChunk;
   return static_cast<int>(launch(
-      distance_batch_kernel, n, chunks,
-      smem_bytes(w, nq < kChunk ? nq : kChunk),
+      distance_batch_kernel, batch_shape(n, w, nq),
       static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(codes),
       static_cast<const uint32_t*>(queries), static_cast<int32_t*>(out), n, w,
       nq));
+}
+
+// The launches distance_launch and distance_batch_launch make for these
+// arguments, without making them (launch_plan.cuh).
+// Return 0, or the error with which the launch refuses.
+extern "C" int distance_plan(int n, int w, int64_t* out) {
+  if (!distance_fits(w)) return static_cast<int>(cudaErrorInvalidValue);
+  put_plan(out, single_shape(n, w));
+  return 0;
+}
+
+extern "C" int distance_batch_plan(int n, int w, int nq, int64_t* out) {
+  if (!distance_fits(w)) return static_cast<int>(cudaErrorInvalidValue);
+  put_plan(out, batch_shape(n, w, nq));
+  return 0;
 }

@@ -495,6 +495,25 @@ inline unsigned scan_blocks(int groups, int grid_n, int nq, int bq) {
   return blocks > 0x7FFFFFFF ? 0u : static_cast<unsigned>(blocks);
 }
 
+// The shape of a scan_block launch (topk_hist_kernel, topk_fused_kernel):
+// its select, dynamic shared memory and blocks; bq or blocks 0 where the
+// launch is refused.
+struct ScanShape {
+  Select sel;
+  size_t smem;
+  unsigned blocks;
+};
+
+inline ScanShape scan_shape(int groups, int w, int nq, int l_k, int block_n,
+                            int grid_n) {
+  ScanShape s{};
+  s.sel = choose_select(w, block_n, l_k, 0);
+  if (s.sel.bq == 0) return s;
+  s.smem = layout(w, block_n, s.sel.bq, l_k, 0, s.sel.wide).total;
+  s.blocks = scan_blocks(groups, grid_n, nq, s.sel.bq);
+  return s;
+}
+
 template <typename T>
 struct Tag {
   using type = T;

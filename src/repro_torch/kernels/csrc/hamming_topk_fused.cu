@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include "hamming_select.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -74,13 +75,14 @@ extern "C" int topk_fused_launch(const void* codes, const void* queries,
   if (!topk_fused_fits(w, block_n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const hsel::Select sel = hsel::choose_select(w, block_n, l_k, 0);
-  const int bq = sel.bq;
-  const size_t smem = hsel::layout(w, block_n, bq, l_k, 0, sel.wide).total;
-  const unsigned blocks = hsel::scan_blocks(groups, grid_n, nq, bq);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return hsel::dispatch(pack, w, sel.wide, [&](auto u, auto bits, auto wide,
-                                               auto dt, auto it) -> int {
+  const hsel::ScanShape sh =
+      hsel::scan_shape(groups, w, nq, l_k, block_n, grid_n);
+  if (sh.sel.bq == 0 || sh.blocks == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return hsel::dispatch(pack, w, sh.sel.wide, [&](auto u, auto bits,
+                                                  auto wide, auto dt,
+                                                  auto it) -> int {
     using U = typename decltype(u)::type;
     using DT = typename decltype(dt)::type;
     using IT = typename decltype(it)::type;
@@ -88,13 +90,32 @@ extern "C" int topk_fused_launch(const void* codes, const void* queries,
                                   decltype(wide)::value, DT, IT>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(sh.smem));
     if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    kern<<<sh.blocks, kThreads, sh.smem,
+           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(codes),
         static_cast<const uint32_t*>(queries),
         static_cast<const int32_t*>(active), static_cast<DT*>(out_d),
-        static_cast<IT*>(out_i), n, w, nq, l_k, block_n, grid_n, bq, d_sent);
+        static_cast<IT*>(out_i), n, w, nq, l_k, block_n, grid_n, sh.sel.bq,
+        d_sent);
     return cudaGetLastError();
   });
+}
+
+// The launch topk_fused_launch makes for these arguments, without making
+// it (launch_plan.cuh).  Returns 0, or the error
+// with which the launch refuses.
+extern "C" int topk_fused_plan(int groups, int w, int nq, int l_k,
+                               int block_n, int grid_n, int64_t* out) {
+  if (!topk_fused_fits(w, block_n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const hsel::ScanShape sh =
+      hsel::scan_shape(groups, w, nq, l_k, block_n, grid_n);
+  if (sh.sel.bq == 0 || sh.blocks == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  lplan::put(out, sh.blocks, 1, 1, kThreads, sh.smem, 0);
+  return 0;
 }

@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 
 #include "hamming_select.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -460,13 +461,15 @@ int launch_hist(const void* codes, const void* queries, const void* active,
                 void* out_d, void* out_i, int groups, int n, int w, int nq,
                 int l_k, int block_n, int grid_n, int pack, int d_sent,
                 void* stream) {
-  const hsel::Select sel = hsel::choose_select(w, block_n, l_k, 0);
-  const int bq = sel.bq;
-  if (bq == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = hsel::layout(w, block_n, bq, l_k, 0, sel.wide).total;
+  const hsel::ScanShape sh =
+      hsel::scan_shape(groups, w, nq, l_k, block_n, grid_n);
+  if (sh.sel.bq == 0 || sh.blocks == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto st = static_cast<cudaStream_t>(stream);
-  return hsel::dispatch(pack, w, sel.wide, [&](auto u, auto bits, auto wide,
-                                               auto dt, auto it) -> int {
+  return hsel::dispatch(pack, w, sh.sel.wide, [&](auto u, auto bits,
+                                                  auto wide, auto dt,
+                                                  auto it) -> int {
     using U = typename decltype(u)::type;
     using DT = typename decltype(dt)::type;
     using IT = typename decltype(it)::type;
@@ -474,17 +477,44 @@ int launch_hist(const void* codes, const void* queries, const void* active,
                                  decltype(wide)::value, DT, IT>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(sh.smem));
     if (err != cudaSuccess) return err;
-    const unsigned blocks = hsel::scan_blocks(groups, grid_n, nq, bq);
-    if (blocks == 0) return cudaErrorInvalidValue;
-    kern<<<blocks, kThreads, smem, st>>>(
+    kern<<<sh.blocks, kThreads, sh.smem, st>>>(
         static_cast<const uint32_t*>(codes),
         static_cast<const uint32_t*>(queries),
         static_cast<const int32_t*>(active), static_cast<DT*>(out_d),
-        static_cast<IT*>(out_i), n, w, nq, l_k, block_n, grid_n, bq, d_sent);
+        static_cast<IT*>(out_i), n, w, nq, l_k, block_n, grid_n, sh.sel.bq,
+        d_sent);
     return cudaGetLastError();
   });
+}
+
+// Sizes kern (a topk_hist_dma_kernel) for plan pl and works out its
+// persistent grid: as many blocks as the card holds at once by the
+// runtime's occupancy of kern (per_sm a multiprocessor), at most one per
+// item.
+template <typename Kern>
+cudaError_t dma_grid(Kern kern, const DmaPlan& pl, int groups, int grid_n,
+                     int nq, int* blocks, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(pl.total));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kern, pl.groups * kThreads, pl.total);
+  if (err != cudaSuccess) return err;
+  const int64_t n_steps = static_cast<int64_t>(groups) * grid_n;
+  const int64_t n_pass =
+      ((nq + pl.sel.bq - 1) / pl.sel.bq + pl.groups - 1) / pl.groups;
+  if (n_steps * n_pass > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const int n_items = static_cast<int>(n_steps * n_pass);
+  *blocks = *per_sm * sms < n_items ? *per_sm * sms : n_items;
+  if (*blocks < 1) *blocks = 1;
+  return cudaSuccess;
 }
 
 int launch_dma(const void* codes, const void* queries, const void* active,
@@ -502,32 +532,16 @@ int launch_dma(const void* codes, const void* queries, const void* active,
     using IT = typename decltype(it)::type;
     auto kern = topk_hist_dma_kernel<U, decltype(bits)::value,
                                      decltype(wide)::value, DT, IT>;
-    const int threads = pl.groups * kThreads;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(pl.total));
+    int blocks = 0, per_sm = 0;
+    const cudaError_t err =
+        dma_grid(kern, pl, groups, grid_n, nq, &blocks, &per_sm);
     if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        threads, pl.total);
-    if (err != cudaSuccess) return err;
-    // as many blocks as fit on the card at once, at most one per item
-    const int64_t n_steps = static_cast<int64_t>(groups) * grid_n;
-    const int64_t n_pass =
-        ((nq + pl.sel.bq - 1) / pl.sel.bq + pl.groups - 1) / pl.groups;
-    if (n_steps * n_pass > 0x7FFFFFFF) return cudaErrorInvalidValue;
-    const int n_items = static_cast<int>(n_steps * n_pass);
-    int blocks = per_sm * sms < n_items ? per_sm * sms : n_items;
-    if (blocks < 1) blocks = 1;
-    kern<<<blocks, threads, pl.total, st>>>(
+    kern<<<blocks, pl.groups * kThreads, pl.total, st>>>(
         static_cast<const uint32_t*>(codes),
         static_cast<const uint32_t*>(queries),
         static_cast<const int32_t*>(active), static_cast<DT*>(out_d),
         static_cast<IT*>(out_i), n, w, nq, l_k, block_n, grid_n,
-        static_cast<int>(n_steps), pl.sel.bq, pl.sub, pl.stages,
+        groups * grid_n, pl.sel.bq, pl.sub, pl.stages,
         static_cast<int>(pl.group_bytes), d_sent);
     return cudaGetLastError();
   });
@@ -576,4 +590,49 @@ extern "C" int topk_hist_dma_launch(const void* codes, const void* queries,
   }
   return launch_dma(codes, queries, active, out_d, out_i, groups, n, w, nq,
                     l_k, block_n, grid_n, pack, d_sent, stream);
+}
+
+// The launch topk_hist_launch makes for these arguments, without making
+// it (launch_plan.cuh).  Returns 0, or the error
+// with which the launch refuses.
+extern "C" int topk_hist_plan(int groups, int w, int nq, int l_k,
+                              int block_n, int grid_n, int64_t* out) {
+  if (!topk_hist_fits(w, block_n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const hsel::ScanShape sh =
+      hsel::scan_shape(groups, w, nq, l_k, block_n, grid_n);
+  if (sh.sel.bq == 0 || sh.blocks == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  lplan::put(out, sh.blocks, 1, 1, kThreads, sh.smem, 0);
+  return 0;
+}
+
+// The same for topk_hist_dma_launch, whose grid depends on the occupancy
+// of the kernel instance that the pack selects.
+extern "C" int topk_hist_dma_plan(int groups, int w, int nq, int l_k,
+                                  int block_n, int grid_n, int pack,
+                                  int64_t* out) {
+  if (!topk_hist_dma_fits(w, block_n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DmaPlan pl = plan_dma(w, block_n, l_k, nq);
+  if (pl.sel.bq == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return hsel::dispatch(pack, w, pl.sel.wide, [&](auto u, auto bits,
+                                                  auto wide, auto dt,
+                                                  auto it) -> int {
+    using U = typename decltype(u)::type;
+    using DT = typename decltype(dt)::type;
+    using IT = typename decltype(it)::type;
+    auto kern = topk_hist_dma_kernel<U, decltype(bits)::value,
+                                     decltype(wide)::value, DT, IT>;
+    int blocks = 0, per_sm = 0;
+    const cudaError_t err =
+        dma_grid(kern, pl, groups, grid_n, nq, &blocks, &per_sm);
+    if (err != cudaSuccess) return err;
+    lplan::put(out, blocks, 1, 1, pl.groups * kThreads, pl.total,
+                   per_sm);
+    return 0;
+  });
 }

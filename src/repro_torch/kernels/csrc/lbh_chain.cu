@@ -43,6 +43,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -215,6 +217,17 @@ lbh_chain_kernel(const float* __restrict__ p, const float* __restrict__ q,
   }
 }
 
+// The grid of a launch: a block per multiprocessor, at most one per row.
+cudaError_t chain_blocks(int m, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *blocks = m < sms ? m : sms;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // p, q: (m,) float32; r: (m, m) float32 row-major; sq, sp: (m,) float32.
@@ -222,12 +235,9 @@ lbh_chain_kernel(const float* __restrict__ p, const float* __restrict__ q,
 extern "C" int lbh_chain_launch(const void* p, const void* q, const void* r,
                                 void* sq, void* sp, int m, void* stream) {
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int blocks = 0;
+  const cudaError_t err = chain_blocks(m, &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int blocks = m < sms ? m : sms;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto pp = static_cast<const float*>(p);
   const auto qq = static_cast<const float*>(q);
@@ -241,4 +251,15 @@ extern "C" int lbh_chain_launch(const void* p, const void* q, const void* r,
                                                          m);
   }
   return cudaGetLastError();
+}
+
+// The launch lbh_chain_launch makes for m, without making it
+// (launch_plan.cuh; no dynamic shared memory: the kernel's is static).  Returns 0, or the error with which the launch refuses.
+extern "C" int lbh_chain_plan(int m, int64_t* out) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = chain_blocks(m, &blocks);
+  if (err != cudaSuccess) return err;
+  lplan::put(out, blocks, 1, 1, kThreads, 0, 0);
+  return 0;
 }

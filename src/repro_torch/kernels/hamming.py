@@ -59,6 +59,12 @@ def _scan_signatures(*prefixes: str) -> dict:
         sigs[f"{prefix}_fits"] = (ctypes.c_int, [ctypes.c_int] * 2)
         sigs[f"{prefix}_launch"] = (ctypes.c_int, [ctypes.c_void_p] * 5
                                     + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        # the launch's shape without launching (kernels.contracts reads it);
+        # the pipelined scan's also takes the pack, whose kernel's
+        # occupancy sizes its grid
+        ints = 7 if prefix == "topk_hist_dma" else 6
+        sigs[f"{prefix}_plan"] = (ctypes.c_int, [ctypes.c_int] * ints
+                                  + [ctypes.c_void_p])
     return sigs
 
 
@@ -72,6 +78,10 @@ _SIGNATURES = {
                             + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
         "distance_batch_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+        "distance_plan": (ctypes.c_int, [ctypes.c_int] * 2
+                          + [ctypes.c_void_p]),
+        "distance_batch_plan": (ctypes.c_int, [ctypes.c_int] * 3
+                                + [ctypes.c_void_p]),
     },
 }
 

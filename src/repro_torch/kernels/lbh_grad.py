@@ -34,6 +34,7 @@ LIBRARY = "lbh_chain"
 _SIGNATURES = {
     "lbh_chain_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                          + [ctypes.c_int, ctypes.c_void_p]),
+    "lbh_chain_plan": (ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]),
 }
 
 

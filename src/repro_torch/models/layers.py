@@ -90,6 +90,18 @@ def init_params(struct, dtype, *, generator: torch.Generator, device):
     return tree_map(one, struct)
 
 
+def abstract_params(struct, dtype):
+    """The tree of ``struct`` as empty tensors of ``dtype`` on the meta
+    device: shapes without storage, for the dry-run's account."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), struct)
+
+
+def logical_axes(struct):
+    """Tree of logical-axis tuples, mirroring the param tree."""
+    return tree_map(lambda s: s.axes, struct)
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

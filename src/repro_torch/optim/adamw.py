@@ -203,7 +203,11 @@ def _leaf_seed(seed: int, step: int, i: int) -> int:
 
 def draw_uniforms(seed: int, step: int, i: int, shape, device):
     """U[0, 1) float32 for leaf i at ``step``, from a generator seeded from
-    (seed, step, i)."""
+    (seed, step, i).  On the meta device (the dry-run's account, which
+    needs shapes, not draws) the same draw without a generator, which
+    meta cannot hold: an op the account counts as the card runs it."""
+    if torch.device(device).type == "meta":
+        return torch.rand(shape, dtype=torch.float32, device=device)
     g = torch.Generator(device=device).manual_seed(_leaf_seed(seed, step, i))
     return torch.rand(shape, generator=g, dtype=torch.float32, device=device)
 

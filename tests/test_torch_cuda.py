@@ -1126,3 +1126,33 @@ def test_train_step_on_card_matches_cpu(cuda, name):
     for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
         a, b = out["cuda"][key], out["cpu"][key]
         assert abs(a - b) / abs(b) <= tol, (key, a, b)
+
+
+def test_fits_exports_match_the_launch_contracts(cuda):
+    """Each library's ``*_fits`` export answers as
+    ``kernels.contracts`` reckons it without a card, over W 1-128 and
+    block_n up to 131,072 (``distance_fits`` over W 1-4,096)."""
+    from repro_torch.kernels import contracts, hamming
+    libs = {name: _build.load(name, hamming._SIGNATURES[name])
+            for name in (SCAN_LIB, FUSED_LIBRARY, DISTANCE_LIBRARY)}
+    for lib, name, fits in (
+            (SCAN_LIB, "topk_hist_fits", contracts.topk_hist_fits),
+            (SCAN_LIB, "topk_hist_dma_fits", contracts.topk_hist_dma_fits),
+            (FUSED_LIBRARY, "topk_fused_fits", contracts.topk_fused_fits)):
+        for w in range(1, 129):
+            for bn in (1, 100, 128, 2048, 8192, 32768, 65536, 65537,
+                       131072):
+                assert bool(getattr(libs[lib], name)(w, bn)) == \
+                    fits(w, bn), (name, w, bn)
+    for w in range(1, 4097):
+        assert bool(libs[DISTANCE_LIBRARY].distance_fits(w)) == \
+            contracts.distance_fits(w), w
+
+
+def test_plan_exports_match_the_launch_contracts(cuda):
+    """Each launch that ``kernels.contracts`` reckons over its sweep (grid,
+    threads, dynamic shared memory) is the launch the built library
+    reports through its ``*_plan`` export."""
+    from repro_torch.kernels import contracts
+    got = contracts.compare_plans()
+    assert got["launches"] > 150 and got["differ"] == []

@@ -56,7 +56,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/data/tokens.py",
             "src/repro_torch/data/loader.py",
             "src/repro_torch/launch/train.py",
-            "src/repro_torch/examples/train_lm.py"} <= walked
+            "src/repro_torch/examples/train_lm.py",
+            "src/repro_torch/sharding/rules.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/op_stats.py",
+            "src/repro_torch/launch/analysis.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/kernels/contracts.py",
+            "src/repro_torch/utils/captures.py"} <= walked
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in PORT_FILES for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
