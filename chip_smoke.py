@@ -99,8 +99,9 @@ cut depth), every kernel count staying 0:
 - MLA (phase 22): minicpm3-4b at full width and depth (62 layers, d_model
   2,560, 40 heads, q_lora 768, kv_lora 256; 4.26 B parameters), the
   absorbed decode over the latent cache; then (phase 23) the activation
-  index path over its 2,560-wide activations (kernels 1, 8, 4, 2, held
-  to their plain versions; the kernels' JSON keeps phase 20's readings);
+  index path over its 2,560-wide activations, embedded through its first
+  8 layers (kernels 1, 8, 4, 2, held to their plain versions; the
+  kernels' JSON keeps phase 20's readings);
 - deepseek-v3-671b (phase 24) at full width cut to depth 4 (its 3 dense
   layers and 1 MoE layer of 256 experts, top 8, sigmoid router; no MTP
   head; 15.11 B parameters, 28.15 GiB), the router's top-k and the
@@ -150,6 +151,23 @@ contracts' sweep against the library's ``*_plan`` export (grid, threads,
 dynamic shared memory), and the static shared memory of the ptxas
 report.  Phase 12's replays of one captured bit loop run under
 ``utils.captures.CaptureCounter.assert_no_capture``.
+
+Then the long-prompt path, through the attention's chunked online
+softmax (``models.attention.flash_attention``, 512 x 512 chunks; a
+window's 512-query spans): qwen3-1.7b (phase 32) at full width and depth
+in bf16 prefills one prompt of 32,768 tokens (the prefill_32k length,
+batch 1 of its 32) through the ``Engine``'s steps and decodes 16 greedy
+tokens on that cache; the prefill's FLOPs equal the meta account of the
+same step and its allocator peak lies within 10% of the account's
+transient; first, at 2 layers, full width, fp32 and S 8,192, its logits
+against one chunk each way (the single softmax) within S 2^-24.  The
+same for recurrentgemma-2b at full size (phase 33; windowed layers,
+window 2,048; the gate at one (rec, rec, attn) unit) and minicpm3-4b at
+full width, depth 4 (phase 34; MLA prefill, absorbed decode).  Phase 35
+trains qwen3-1.7b at full width and depth in float32 on one sequence of
+4,096 tokens (the train_4k length), remat, 3 steps, after one step at 2
+layers on one sequence of 1,024 tokens (two chunks) card against CPU.
+None of the eight kernels runs there.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON reports kernels 1, 2, 4 and 8 with
@@ -244,6 +262,20 @@ INT8_STEPS = 8
 # batch, probe normals and their labelled subsets, the scan's l
 ACT_N, ACT_S, ACT_BATCH = 8192, 128, 64
 ACT_PROBES, ACT_LABELLED, ACT_SCAN_L = 32, 64, 256
+# the long-prompt path: one prompt of the prefill_32k length (batch 1 of
+# its 32) through the Engine's steps, then greedy tokens; the chunking
+# gates' sequence and depth (qwen3-1.7b; recurrentgemma-2b at one (rec,
+# rec, attn) unit); minicpm3-4b's depth there; the train_4k length, its
+# steps and the card-vs-CPU step's length (two 512-token chunks); the
+# allocator's peak against the account's transient
+LONG_S, LONG_GEN = 32_768, 16
+CHUNK_GATE_S, CHUNK_GATE_LAYERS = 8_192, 2
+LONG_MLA_LAYERS = 4
+LONG_TRAIN_S, LONG_TRAIN_STEPS, LONG_TRAIN_CUT_S = 4_096, 3, 1_024
+LONG_PEAK_MARGIN = 0.10
+# phase 23 embeds through the first layers of minicpm3-4b (its d = 2,560
+# activations at a fraction of the 62 layers' time)
+MLA_ACT_LAYERS = 8
 # H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
 # cores, bf16 on the tensor cores (dense), from the dry-run's analysis
 # (one copy); popcount issues 16 results per clock per SM (CUDA
@@ -1809,6 +1841,49 @@ def step_gap(cfg, tree, batch, dev, opt_cfg, control=False):
     return out[0][0], out[1][0], out[0][1], out[1][1], moved
 
 
+def cut_step_gate(cut, tree, tok, dev, opt_cfg) -> dict:
+    """One train step of the cut model (``cut_tree``) from tree on tok,
+    on dev against the CPU (``step_gap``): the loss within 1e-5, the
+    gradient norm within 1e-4, every updated parameter within 2 lr (1 +
+    wd max|p|) and at most 1e-4 of them beyond 1e-6.  Returns the
+    readings."""
+    import numpy as np
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    b, s = tok.shape
+    t0 = time.perf_counter()
+    mc, mp, card, cpu, _ = step_gap(cut, tree, {"tokens": tok,
+                                                "labels": tok}, dev, opt_cfg)
+    lr1 = mc["lr"]
+    maxes, beyond, n, pmax = [], 0, 0, 0.0
+    for a, c in zip(tree_leaves(card.tree()), tree_leaves(cpu.tree())):
+        d = (a.detach().cpu() - c.detach()).abs()
+        maxes.append(float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        n += d.numel()
+        pmax = max(pmax, float(c.detach().abs().max()))
+    dmax = float(torch.tensor(maxes).max())      # NaN if any leaf is
+    bound_p = 2 * lr1 * (1 + opt_cfg.weight_decay * pmax)
+    out = dict(cut_loss_rel=abs(mc["loss"] - mp["loss"]) / mp["loss"],
+               cut_gnorm_rel=abs(mc["grad_norm"] - mp["grad_norm"])
+               / mp["grad_norm"], cut_param_max_abs=dmax,
+               cut_param_share_beyond_1e6=beyond / n,
+               cut_s=time.perf_counter() - t0)
+    print(f"card vs CPU, one step at {cut.num_layers} layers, full width "
+          f"(B {b}, S {s}; {out['cut_s']:.1f} s): loss {mc['loss']:.7f} / "
+          f"{mp['loss']:.7f} (relative {out['cut_loss_rel']}, bound 1e-5), "
+          f"grad norm relative {out['cut_gnorm_rel']} (bound 1e-4), "
+          f"updated parameters: max |difference| {dmax} (bound 2 lr (1 + "
+          f"wd max|p|) = {bound_p}), {beyond} of {n} beyond 1e-6 (bound "
+          f"1e-4 of them)")
+    check(np.isfinite([mc["grad_norm"], mp["grad_norm"], dmax]).all()
+          and out["cut_loss_rel"] <= 1e-5 and out["cut_gnorm_rel"] <= 1e-4,
+          "the card's step matches the CPU's loss and grad norm")
+    check(dmax <= bound_p and beyond <= 1e-4 * n,
+          "the card's updated parameters match the CPU's")
+    return out
+
+
 def train_phase(args, dev, zero_counts, read_counts):
     """The training path at qwen3-1.7b's full width and depth, through
     ``launch.train``'s pieces (``build``: float32 parameters from
@@ -2050,38 +2125,7 @@ def train_phase(args, dev, zero_counts, read_counts):
     tok = torch.from_numpy(stream.batch(TRAIN_CUT_B, TRAIN_CUT_S)).long()
     cut_opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
                           total_steps=TRAIN_STEPS)
-    t0 = time.perf_counter()
-    mc, mp, card, cpu, _ = step_gap(cut, tree, {"tokens": tok,
-                                                "labels": tok}, dev, cut_opt)
-    lr1 = mc["lr"]
-    maxes, beyond, n, pmax = [], 0, 0, 0.0
-    for a, b in zip(tree_leaves(card.tree()), tree_leaves(cpu.tree())):
-        d = (a.detach().cpu() - b.detach()).abs()
-        maxes.append(float(d.max()))
-        beyond += int((d > 1e-6).sum())
-        n += d.numel()
-        pmax = max(pmax, float(b.detach().abs().max()))
-    dmax = float(torch.tensor(maxes).max())      # NaN if any leaf is
-    bound_p = 2 * lr1 * (1 + cut_opt.weight_decay * pmax)
-    stats.update(cut_loss_rel=abs(mc["loss"] - mp["loss"]) / mp["loss"],
-                 cut_gnorm_rel=abs(mc["grad_norm"] - mp["grad_norm"])
-                 / mp["grad_norm"], cut_param_max_abs=dmax,
-                 cut_param_share_beyond_1e6=beyond / n,
-                 cut_s=time.perf_counter() - t0)
-    print(f"card vs CPU, one step at {TRAIN_CUT_LAYERS} layers, full width "
-          f"(B {TRAIN_CUT_B}, S {TRAIN_CUT_S}; {stats['cut_s']:.1f} s): "
-          f"loss {mc['loss']:.7f} / {mp['loss']:.7f} (relative "
-          f"{stats['cut_loss_rel']}, bound 1e-5), grad norm relative "
-          f"{stats['cut_gnorm_rel']} (bound 1e-4), updated parameters: max "
-          f"|difference| {dmax} (bound 2 lr (1 + wd max|p|) = {bound_p}), "
-          f"{beyond} of {n} beyond 1e-6 (bound 1e-4 of them)")
-    check(np.isfinite([mc["grad_norm"], mp["grad_norm"], dmax]).all()
-          and stats["cut_loss_rel"] <= 1e-5
-          and stats["cut_gnorm_rel"] <= 1e-4,
-          "the card's step matches the CPU's loss and grad norm")
-    check(dmax <= bound_p and beyond <= 1e-4 * n,
-          "the card's updated parameters match the CPU's")
-    del card, cpu
+    stats.update(cut_step_gate(cut, tree, tok, dev, cut_opt))
 
     # -- int8 moments at the cut depth: finite and falling
     from repro_torch.models import Transformer
@@ -2140,6 +2184,231 @@ def train_phase(args, dev, zero_counts, read_counts):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     if cuda:
         torch.cuda.empty_cache()
+    return stats
+
+
+@contextlib.contextmanager
+def attention_chunks(q_chunk: int, kv_chunk: int):
+    """The attention blocks' ``flash_attention`` called with these chunks
+    (they call it with the reference's 512 x 512): q_chunk = kv_chunk = S
+    gives one chunk each way, the single softmax over a whole row (a
+    window's whole span)."""
+    import functools
+    from repro_torch.models import attention
+    real = attention.flash_attention
+    attention.flash_attention = functools.partial(real, q_chunk=q_chunk,
+                                                  kv_chunk=kv_chunk)
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def chunk_gate(cfg, tree, layers, dev, g) -> dict:
+    """The chunked attention against one chunk each way at ``layers``
+    layers (``cut_tree``), full width, float32, one sequence of
+    CHUNK_GATE_S tokens: the forward logits must agree within S 2^-24,
+    the worst-case relative rounding of one float32 sum of S terms (the
+    two forms differ only in how a row's sums are split and rescaled).
+    Returns the readings."""
+    import torch
+    from repro_torch.core.functions import strict_fp32
+    from repro_torch.models import Transformer, forward
+    s = CHUNK_GATE_S
+    cut, tree_cut = cut_tree(cfg, tree, layers)
+    model32 = Transformer(cut, tree_cut, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (1, s), generator=g, device=dev)
+    with strict_fp32(), torch.inference_mode():
+        chunked = forward(cut, model32, {"tokens": tok})[0]
+        with attention_chunks(s, s):
+            one = forward(cut, model32, {"tokens": tok})[0]
+        err = ((chunked - one).abs().max() / one.abs().max()).item()
+        finite = bool(torch.isfinite(chunked).all())
+    bound = s * 2.0 ** -24
+    print(f"chunking gate, {layers} layers, full width, fp32 (B 1, S {s}): "
+          f"512 x 512 chunks vs one chunk each way: logits relative error "
+          f"{err} (bound S 2^-24 = {bound})")
+    check(finite and err <= bound, f"{cfg.name}'s chunked attention "
+          f"matches the single softmax within {bound}")
+    del model32, chunked, one
+    return {"chunk_gate_err": err, "chunk_gate_bound": bound,
+            "chunk_gate_layers": layers}
+
+
+def long_prefill_phase(args, cfg, dev, zero_counts, read_counts,
+                       gate_layers=None, account=False) -> dict:
+    """One LONG_S-token prompt through the ``Engine``'s prefill step at
+    cfg's width and depth in bf16 (weights from ``--seed``), then
+    LONG_GEN greedy tokens through its decode step, each step timed
+    alone; the prefill's allocator peak above what it started with beside
+    the (B, H, S, S) float32 scores the one-block form would hold.  With
+    account, a first prefill runs under the dry-run account's counter
+    (``launch.op_stats.OpCounter``): its FLOPs must equal the meta account
+    of the same step (``dryrun.count_step`` at B 1, S LONG_S), and the
+    timed prefill's allocator peak must lie within LONG_PEAK_MARGIN of the
+    account's transient.  gate_layers: the depth of ``chunk_gate``, run
+    before the serving.  Every kernel count stays 0.  Returns stats."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_stats import OpCounter
+    from repro_torch.serve.engine import Engine
+    s, gen = LONG_S, LONG_GEN
+    stats = {}
+    tree, model, g = init_model(args, cfg, dev, stats)
+    if gate_layers:
+        stats.update(chunk_gate(cfg, tree, gate_layers, dev, g))
+        torch.cuda.empty_cache()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                                     device=dev)}
+    engine = Engine(cfg, model, max_len=s + gen, device=dev)
+    zero_counts()
+    if account:
+        with OpCounter(dev.type) as counter:
+            last, caches = engine.prefill_step(model, batch)
+            torch.cuda.synchronize()
+        del last, caches
+        stats.update(card_flops_by_dtype=dict(counter.flops_by_dtype),
+                     card_counter_launches=counter.launches,
+                     card_counter_peak_bytes=counter.peak_bytes)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, caches = engine.prefill_step(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          f"{cfg.name}'s {s}-token prefill gives finite last logits")
+    nxt = torch.argmax(last, dim=-1)
+    out, step_ms = [nxt], []
+    for i in range(gen - 1):
+        t0 = time.perf_counter()
+        nxt, caches = engine.serve_step(model, caches, nxt, s + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        out.append(nxt)
+    toks = torch.stack(out, dim=1)
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "the generated tokens lie in the vocabulary")
+    launched = read_counts()
+    check(not any(launched.values()), f"the {cfg.name} long-prompt path "
+          f"launches none of the eight kernels: {launched}")
+    one_block = cfg.num_heads * s * s * 4
+    stats.update(prompt=s, prefill_s=prefill_s, prefill_tok_per_s=s
+                 / prefill_s, prefill_peak_gib=peak / 2**30,
+                 one_block_scores_gib=one_block / 2**30,
+                 decode_p50_ms=float(np.quantile(step_ms, 0.5)),
+                 decode_p95_ms=float(np.quantile(step_ms, 0.95)),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"{cfg.name}, one {s}-token prompt: prefill {prefill_s:.3f} s = "
+          f"{stats['prefill_tok_per_s']:.1f} tokens/s; allocator peak "
+          f"{stats['prefill_peak_gib']:.3f} GiB above the "
+          f"{before / 2**30:.3f} GiB allocated before it (the one-block "
+          f"form's float32 scores alone: {stats['one_block_scores_gib']:.1f}"
+          f" GiB); {gen} greedy tokens, decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms, p95 {stats['decode_p95_ms']:.3f}"
+          f" ms on the {s}-position cache; none of the eight kernels "
+          f"launched")
+    del last, caches
+    if account:
+        counts = dryrun.count_step(cfg, ShapeConfig("prefill_32k_b1", s, 1,
+                                                    "prefill"),
+                                   dtype=torch.bfloat16)
+        gap = abs(peak - counts["transient_peak"]) / counts["transient_peak"]
+        stats.update(flops_by_dtype=counts["flops_by_dtype"],
+                     launches=counts["launches"],
+                     transient_peak_bytes=counts["transient_peak"],
+                     peak_delta_bytes=peak, peak_rel_gap=gap,
+                     count_s=counts["count_s"])
+        print(f"the meta account of the same step (B 1, S {s}, bf16): FLOPs "
+              f"{json.dumps(counts['flops_by_dtype'])}, the card's "
+              f"{json.dumps(stats['card_flops_by_dtype'])}; launches: "
+              f"account {counts['launches']}, the card's counter "
+              f"{stats['card_counter_launches']}; transient peak: account "
+              f"{counts['transient_peak'] / 2**30:.4f} GiB, the card's "
+              f"counter {stats['card_counter_peak_bytes'] / 2**30:.4f} GiB, "
+              f"the allocator's {peak / 2**30:.4f} GiB (relative gap "
+              f"{gap:.4f}, bound {LONG_PEAK_MARGIN})")
+        check(counts["flops_by_dtype"] == stats["card_flops_by_dtype"],
+              "the long prefill's FLOPs on the card equal the account's")
+        check(gap <= LONG_PEAK_MARGIN, f"the long prefill's allocator peak "
+              f"lies within {LONG_PEAK_MARGIN} of the account's transient")
+    del model, tree, engine
+    torch.cuda.empty_cache()
+    return stats
+
+
+def long_train_phase(args, dev, zero_counts, read_counts) -> dict:
+    """qwen3-1.7b training at full width and depth in float32 on one
+    sequence of LONG_TRAIN_S tokens (the train_4k length), remat, AdamW:
+    LONG_TRAIN_STEPS steps timed with CUDA events, the losses finite, the
+    allocator's peak; first the card against the CPU (``cut_step_gate``)
+    for one step at TRAIN_CUT_LAYERS layers of the same init on one
+    sequence of LONG_TRAIN_CUT_S tokens (two 512-token chunks).  Every
+    kernel count stays 0.  Returns stats."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import Transformer, init_params, model_spec
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    cfg = get_arch(TRAIN_ARCH)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    tree = init_params(model_spec(cfg), torch.float32, generator=g,
+                       device=dev)
+    # phase 29's optimizer, so the card-vs-CPU step is held as there
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=20, total_steps=TRAIN_STEPS)
+    stream = SyntheticTokenStream(cfg.vocab_size, seed=args.seed)
+    cut, tree_cut = cut_tree(cfg, tree, TRAIN_CUT_LAYERS)
+    stats = cut_step_gate(cut, tree_cut, torch.from_numpy(
+        stream.batch(1, LONG_TRAIN_CUT_S)).long(), dev, opt)
+    del tree_cut
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, tree, trainable=True)
+    state = init_opt_state(model.tree(), opt)
+    step = make_train_step(cfg, opt, remat=True)
+    tok = torch.from_numpy(stream.batch(1, LONG_TRAIN_S)).long().to(dev)
+    batch = {"tokens": tok, "labels": tok}
+    zero_counts()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(LONG_TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, state, met = step(model, state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(met["loss"]))
+    launched = read_counts()
+    check(bool(np.isfinite(losses).all()), f"the {LONG_TRAIN_S}-token "
+          f"training steps' losses are finite: {losses}")
+    check(not any(launched.values()), f"the long training path launches "
+          f"none of the eight kernels: {launched}")
+    p50 = float(np.quantile(step_ms, 0.5))
+    stats.update(seq=LONG_TRAIN_S, losses=losses, step_ms=step_ms,
+                 step_p50_ms=p50, tokens_per_s=LONG_TRAIN_S / (p50 / 1e3),
+                 state_gib=before / 2**30,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"{cfg.name} training, full width and depth, float32, remat, B 1 "
+          f"x {LONG_TRAIN_S} tokens, {LONG_TRAIN_STEPS} steps: losses "
+          f"{[round(v, 5) for v in losses]}; step ms (CUDA events) "
+          f"{[round(v, 2) for v in step_ms]}, p50 {p50:.2f} = "
+          f"{stats['tokens_per_s']:.1f} tokens/s; allocator peak "
+          f"{stats['peak_gib']:.3f} GiB (parameters and moments "
+          f"{stats['state_gib']:.3f} GiB before the first step); none of "
+          f"the eight kernels launched")
+    del model, state, tree, batch
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -3924,9 +4193,14 @@ def main() -> int:
     # -- 23. the activation index path over the MLA model's activations ---
     phase("23 activation index path over MLA activations")
     torch.cuda.reset_peak_memory_stats()
-    mla_launches, mla_act = activation_phase(args, mla_cfg, model, dev,
-                                             zero_counts, read_counts,
-                                             records)
+    from repro_torch.models import Transformer
+    act_cfg, act_tree = cut_tree(mla_cfg, model.tree(), MLA_ACT_LAYERS)
+    print(f"embedding through the first {MLA_ACT_LAYERS} of "
+          f"{mla_cfg.num_layers} layers")
+    mla_launches, mla_act = activation_phase(
+        args, act_cfg, Transformer(act_cfg, act_tree), dev, zero_counts,
+        read_counts, records)
+    del act_tree
     print(f"peak device memory in phase 23 "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"phase 23 kernel readings at d = {mla_cfg.d_model} (the kernels' "
@@ -4010,8 +4284,30 @@ def main() -> int:
     phase("31 launch contracts")
     print("launch contracts: " + json.dumps(contracts_phase(_build)))
 
-    # -- 32. times ----------------------------------------------------------
-    phase("32 times")
+    # -- 32-35. the long-prompt path ----------------------------------------
+    phase("32 long prompt: qwen3-1.7b prefill of 32,768 tokens")
+    long_stats = {"qwen3": long_prefill_phase(
+        args, lm_cfg, dev, zero_counts, read_counts,
+        gate_layers=CHUNK_GATE_LAYERS, account=True)}
+    print(f"card: {smi}")
+    phase("33 long prompt: recurrentgemma-2b (windowed) prefill")
+    long_stats["recurrentgemma"] = long_prefill_phase(
+        args, get_arch(RG_ARCH), dev, zero_counts, read_counts,
+        gate_layers=RG_CUT_LAYERS)
+    print(f"card: {smi}")
+    phase(f"34 long prompt: minicpm3-4b (MLA) at depth {LONG_MLA_LAYERS}")
+    long_stats["minicpm3"] = long_prefill_phase(
+        args, dataclasses.replace(mla_cfg, num_layers=LONG_MLA_LAYERS), dev,
+        zero_counts, read_counts)
+    print(f"card: {smi}")
+    phase(f"35 long training: qwen3-1.7b on {LONG_TRAIN_S} tokens")
+    long_stats["train"] = long_train_phase(args, dev, zero_counts,
+                                           read_counts)
+    print(f"card: {smi}")
+    print("long-prompt path stats: " + json.dumps(long_stats))
+
+    # -- 36. times ----------------------------------------------------------
+    phase("36 times")
     layer = ("hamming_topk_hist_dma", "hamming_distance_batch",
              "hamming_distance")
     kernels = []

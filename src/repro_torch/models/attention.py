@@ -2,21 +2,26 @@
 and MLA (DeepSeek-style multi-head latent attention with a compressed KV
 cache and the absorbed decode path).
 
-Layouts: x (B, S, D); q (B, S, H, hd); kv (B, S, K, hd).  The attention
-itself is plain PyTorch: the scores come in float32 from the storage-dtype
-operands (the JAX package's ``preferred_element_type=jnp.float32``), masked
-with ``NEG`` and normalised in float32.  The JAX package's online-softmax
-chunking keeps (S, S) scores out of HBM at 32k tokens; the port's prompts
-are short, so one block of scores per call.
+Layouts: x (B, S, D); q (B, S, H, hd); kv (B, S, K, hd).  Train and
+prefill run the JAX package's chunked online-softmax attention
+(``flash_attention``; ``_windowed`` for a local window) in plain
+PyTorch: the scores come in float32 from the storage-dtype operands (the
+reference's ``preferred_element_type=jnp.float32``), masked with ``NEG``
+and normalised in float32, one tile of query rows by kv_chunk keys at a
+time, so no (S, S) score matrix exists: a 32,768-token prompt holds at
+most ``TILE_BYTES`` of float32 scores at once.  Decode reads the whole
+cache in one block.
 
-A decode write past the cache raises (the reference's
-``dynamic_update_slice`` clamps).
+Where the reference asserts that a chunk divides the sequence, the port
+raises ``ValueError``.  A decode write past the cache raises (the
+reference's ``dynamic_update_slice`` clamps).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import (ParamSpec, apply_m_rope, apply_rope,
                                        rms_norm)
@@ -24,20 +29,40 @@ from repro_torch.models.layers import (ParamSpec, apply_m_rope, apply_rope,
 NEG = -1e30
 
 
-def _scores(q, k):
-    """(B, H, Sq, Skv) float32 scores from q (B, Sq, H, hd) and
-    k (B, Skv, H, hd).  bf16 products are exact in float32, so upcasting
-    first and summing in float32 is the float32-accumulated product."""
-    return torch.einsum("bqhd,bshd->bhqs", q.to(torch.float32),
-                        k.to(torch.float32))
+# the (B, H, rows, keys) float32 score tile a step of ``flash_attention``
+# or ``_windowed`` holds at most (or one chunk's, where that is larger)
+TILE_BYTES = 1 << 30
 
 
-def attention(q, k, v, *, window: int | None = None):
-    """Causal attention.  q: (B, S, H, hd); k, v: (B, Skv, K, hd) with
-    H = K * G.  window=w restricts each query to the last w keys.
+def _chunks_per_block(b: int, h: int, n: int, rows: int, cols: int) -> int:
+    """The most query chunks (a divisor of n) whose (b, h, chunks * rows,
+    cols) float32 score tile stays within TILE_BYTES; at least one."""
+    per = b * h * rows * cols * 4
+    return max([d for d in range(1, n + 1)
+                if n % d == 0 and d * per <= TILE_BYTES] or [1])
 
-    Returns (B, S, H, hd) in q's dtype (the windowed form in k's, as the
-    JAX package's ``_windowed``)."""
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, q_chunk: int = 512,
+                    kv_chunk: int = 512, q_offset: int = 0):
+    """Chunked online-softmax attention (train / prefill).  q: (B, S, H,
+    hd); k: (B, Skv, K, hd), v: (B, Skv, K, hd_v) with H = K * G.
+
+    Returns (B, S, H, hd_v) in q's dtype; window=w restricts each query
+    to the last w keys (``_windowed``, in k's dtype).  Raises ValueError
+    where the reference asserts: S not a multiple of min(q_chunk, S), or
+    (without a window) Skv not a multiple of min(kv_chunk, Skv).
+
+    Every query row takes the reference's steps over the kv chunks
+    0 .. nkv-1 in float32: the scores from upcast operands, the causal
+    mask to NEG, m_new = max(m, rowmax), p = exp(s - m_new), alpha =
+    exp(m - m_new), l = l alpha + sum p, acc = acc alpha + p v; out =
+    acc / max(l, 1e-30).  A row's result does not depend on which rows
+    share a step, so one loop over the kv chunks carries a block of
+    query chunks at once, as many as keep the (B, H, rows, kv_chunk)
+    tile within TILE_BYTES (``_chunks_per_block``): nq / blocks x nkv
+    steps where the reference takes nq x nkv.  No chunk is skipped, fully
+    masked or not, so the work is the reference's."""
     b, s, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -45,19 +70,91 @@ def attention(q, k, v, *, window: int | None = None):
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     scale = 1.0 / math.sqrt(hd)
-    scores = _scores(q, k) * scale                       # (b, h, s, skv)
-    qpos = torch.arange(s, device=q.device)
-    kpos = torch.arange(skv, device=q.device)
-    mask = qpos[:, None] >= kpos[None, :]
+    cq = min(q_chunk, s)
+    if s % cq:
+        raise ValueError(f"{s} queries are not a multiple of the "
+                         f"{cq}-query chunk")
+    nq = s // cq
     if window is not None:
-        mask = mask & (qpos[:, None] - kpos[None, :] < window)
-    scores = torch.where(mask[None, None], scores, NEG)
-    m = scores.max(dim=-1, keepdim=True).values
-    p = torch.exp(scores - m)
-    acc = torch.einsum("bhqs,bshd->bhqd", p, v.to(torch.float32))
-    out = acc / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
-    out = out.permute(0, 2, 1, 3)                        # (b, s, h, hd)
-    return out.to(k.dtype if window is not None else q.dtype)
+        return _windowed(q, k, v, window, cq, q_offset, scale)
+    ckv = min(kv_chunk, skv)
+    if skv % ckv:
+        raise ValueError(f"{skv} keys are not a multiple of the "
+                         f"{ckv}-key chunk")
+    nkv = skv // ckv
+    rows = cq * _chunks_per_block(b, h, nq, cq, ckv)
+    # float32 in the (B, H, S, hd) layout, so that every step's products
+    # take their operands as they lie
+    qf, kf, vf = (t.to(torch.float32).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    dev = q.device
+    kpos = torch.arange(ckv, device=dev)
+    outs = []
+    for r0 in range(0, s, rows):
+        qi = qf[:, :, r0:r0 + rows]
+        qpos = q_offset + r0 + torch.arange(rows, device=dev)
+        m = torch.full((b, h, rows), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros_like(m)
+        acc = m.new_zeros((b, h, rows, vf.shape[-1]))
+        for j in range(nkv):
+            kj = kf[:, :, j * ckv:(j + 1) * ckv]
+            vj = vf[:, :, j * ckv:(j + 1) * ckv]
+            s_ij = torch.einsum("bhqd,bhsd->bhqs", qi, kj) * scale
+            if causal:
+                mask = qpos[:, None] >= (j * ckv + kpos)[None, :]
+                s_ij = torch.where(mask[None, None], s_ij, NEG)
+            m_new = torch.maximum(m, s_ij.amax(dim=-1))
+            p = torch.exp(s_ij - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqs,bhsd->bhqd", p, vj)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]    # (b,h,rows,hd)
+        outs.append(out.permute(0, 2, 1, 3))                 # (b,rows,h,hd)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.to(q.dtype)
+
+
+def _windowed(q, k, v, window: int, cq: int, q_offset: int, scale: float):
+    """Sliding-window causal attention: query chunk i (of cq rows) sees
+    the window + cq keys that start at i * cq of the keys left-padded by
+    window (the reference's ``dynamic_slice``), masked to kpos <= qpos,
+    qpos - kpos < window and kpos >= 0; one softmax over that span.
+    FLOPs O(S * (window + cq)).  Chunks whose (B, H, cq, span) tiles fit
+    TILE_BYTES together run as one batched step.  Returns (B, S, H, hd_v)
+    in k's dtype."""
+    b, s, h, hd = q.shape
+    nq = s // cq
+    span = window + cq
+    f32 = torch.float32
+    kp = F.pad(k.to(f32), (0, 0, 0, 0, window, 0))
+    vp = F.pad(v.to(f32), (0, 0, 0, 0, window, 0))
+    dev = q.device
+    arange_q = torch.arange(cq, device=dev)
+    arange_s = torch.arange(span, device=dev)
+    per = _chunks_per_block(b, h, nq, cq, span)
+    qf = q.to(f32).reshape(b, nq, cq, h, hd)
+    outs = []
+    for i0 in range(0, nq, per):
+        starts = range(i0 * cq, (i0 + per) * cq, cq)
+        kj = torch.stack([kp[:, st:st + span] for st in starts], dim=1)
+        vj = torch.stack([vp[:, st:st + span] for st in starts], dim=1)
+        base = q_offset + torch.arange(i0, i0 + per, device=dev)[:, None] * cq
+        qpos = base + arange_q                        # (per, cq)
+        kpos = base - window + arange_s               # (per, span)
+        diff = qpos[:, :, None] - kpos[:, None, :]
+        mask = (diff >= 0) & (diff < window) & (kpos[:, None, :] >= 0)
+        s_ij = torch.einsum("bcqhd,bcshd->bchqs", qf[:, i0:i0 + per],
+                            kj) * scale
+        s_ij = torch.where(mask[None, :, None], s_ij, NEG)
+        m = s_ij.amax(dim=-1, keepdim=True)
+        p = torch.exp(s_ij - m)
+        out = torch.einsum("bchqs,bcshd->bchqd", p, vj) / torch.clamp(
+            p.sum(dim=-1), min=1e-30)[..., None]
+        outs.append(out.permute(0, 1, 3, 2, 4))       # (b, per, cq, h, hd)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(b, s, h, -1).to(k.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +213,7 @@ def gqa_forward(cfg, p, x, pos, *, window=None, make_cache=False,
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope_qk(cfg, q, k, pos)
-    out = attention(q, k, v, window=window)
+    out = flash_attention(q, k, v, causal=True, window=window)
     y = out.reshape(b, s, -1) @ p["w_o"]
     cache = None
     if make_cache:
@@ -213,8 +310,8 @@ def mla_forward(cfg, p, x, pos, *, make_cache=False, cache_len: int = 0):
     kv_lora), "k_pe": (B, cache_len, rope)}, positions 0..S-1 filled.
 
     The reference pads v up to the qk width for its flash kernel and
-    slices the output back; ``attention`` takes v at its own width, and
-    the zero columns change no sum."""
+    slices the output back; ``flash_attention`` takes v at its own width,
+    and the zero columns change no sum."""
     b, s, _ = x.shape
     h = cfg.num_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -226,7 +323,7 @@ def mla_forward(cfg, p, x, pos, *, make_cache=False, cache_len: int = 0):
     v = (c_kv @ p["w_uv"]).reshape(b, s, h, vd)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(b, s, h, rope_d)], dim=-1)
-    out = attention(q, k, v)                              # (B, S, H, vd)
+    out = flash_attention(q, k, v, causal=True)           # (B, S, H, vd)
     y = out.reshape(b, s, h * vd) @ p["w_o"]
     cache = None
     if make_cache:

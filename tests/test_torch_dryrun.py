@@ -228,10 +228,10 @@ def test_count_params_and_overrides_match_jax():
 B, S = 2, 64
 
 
-def _jax_flops(cfg, kind: str) -> float:
+def _jax_flops(cfg, kind: str, b: int = B, s: int = S) -> float:
     dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
     absp = JL.abstract_params(JT.model_spec(cfg), dtype)
-    shape = jbase.ShapeConfig("t", S, B, kind)
+    shape = jbase.ShapeConfig("t", s, b, kind)
     if kind == "train":
         kw = dict(_jax_train_overrides().get(cfg.name, {}))
         opt = JO.AdamWConfig(moment_dtype=kw.pop("moment_dtype", "float32"))
@@ -244,12 +244,12 @@ def _jax_flops(cfg, kind: str) -> float:
         lowered = jax.jit(step).lower(absp, opt_abs,
                                       JSP.train_inputs(cfg, shape))
     elif kind == "prefill":
-        lowered = jax.jit(JE.make_prefill_step(cfg, cache_len=S)).lower(
+        lowered = jax.jit(JE.make_prefill_step(cfg, cache_len=s)).lower(
             absp, JSP.prefill_inputs(cfg, shape))
     else:
         inp, pos = JSP.decode_inputs(cfg, shape)
         lowered = jax.jit(JE.make_serve_step(cfg)).lower(
-            absp, JSP.cache_abstract(cfg, B, S), inp, pos)
+            absp, JSP.cache_abstract(cfg, b, s), inp, pos)
     return hlo_stats.analyze_hlo(lowered.compile().as_text(), 1, 1)["flops"]
 
 
@@ -264,6 +264,18 @@ def test_reduced_step_flops_match_the_hlo_count(arch):
         assert abs(got - want) <= 0.02 * want, (kind, got, want)
         if arch != "mamba2-780m" or kind != "train":
             assert got == want, (kind, got, want)
+
+
+def test_reduced_prefill_at_two_chunks_flops_match_the_hlo_count():
+    """At S = 1,024 the attention runs two 512-token chunks each way
+    (the JAX package's two nested scans, whose trips the HLO count
+    multiplies in): the port's chunked form does the same work, masked
+    chunks included."""
+    jcfg, tcfg = jreg.reduced(jreg.ARCHS["qwen3-1.7b"]), \
+        treg.REDUCED["qwen3-1.7b"]
+    counts = dryrun.count_step(tcfg, ShapeConfig("t", 1024, 1, "prefill"))
+    got = sum(counts["flops_by_dtype"].values())
+    assert got == _jax_flops(jcfg, "prefill", b=1, s=1024)
 
 
 # -- the counter ---------------------------------------------------------------
