@@ -83,7 +83,7 @@ Then the MoE serving path at full width and depth (deepseek-moe-16b: 28
 layers, d_model 2,048, 64 routed experts (top 6) and 2 shared, the first
 layer dense; 16.38 B parameters in bf16 from ``--seed``):
 ``Engine.generate`` as above, the decode step and the prefill beside
-their bounds at the data-sheet rates, the prefill's drop share at the
+their floors, the prefill's drop share at the
 published capacity factor; gated at 3 layers and full width: the
 dispatch's integers on the card against the CPU's on the same router ids
 (bit for bit), fp32 decode against teacher-forced forward at the
@@ -92,7 +92,7 @@ forward against the CPU's.  It launches none of the eight kernels.
 
 Then this slice's model families, each served as the LM path is
 (``Engine.generate``, B 8 x 128-token prompts, 32 greedy tokens, twice),
-its decode step and prefill beside ``lm_bounds``, gated as phase 19 is
+its decode step and prefill beside their floors, gated as phase 19 is
 (fp32 decode vs teacher-forced forward; card vs CPU fp32 and bf16 at a
 cut depth), every kernel count staying 0:
 
@@ -141,7 +141,8 @@ kernels.
 
 Then (phase 30) the dry-run account (``repro_torch.launch.dryrun``, the
 step on the meta device under ``launch.op_stats.OpCounter``) of phase
-29's train cell and phase 19's decode cell, each held to one step on the
+29's train cell and phase 19's decode cell (made in those phases: their
+printed bounds), each held to one step on the
 card under the same counter: the same FLOPs exactly, the train step's
 transient peak within 10% of the allocator's, each measured p50 at
 least 0.95 of the account's floor.  Phase 31 holds the launch contracts
@@ -168,6 +169,12 @@ trains qwen3-1.7b at full width and depth in float32 on one sequence of
 4,096 tokens (the train_4k length), remat, 3 steps, after one step at 2
 layers on one sequence of 1,024 tokens (two chunks) card against CPU.
 None of the eight kernels runs there.
+
+Every bound printed comes from the package.  A kernel's is
+``kernels.ops``'s (``hash_bound``, ``scan_bound``, ``distance_bound``,
+``lbh_chain_bound``), popcounts at this card's SMs and maximum SM clock.
+A step's (decode, prefill, train) is its floor in the one-device account
+(``launch.dryrun.one_device_record``).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON reports kernels 1, 2, 4 and 8 with
@@ -276,15 +283,7 @@ LONG_PEAK_MARGIN = 0.10
 # phase 23 embeds through the first layers of minicpm3-4b (its d = 2,560
 # activations at a fraction of the 62 layers' time)
 MLA_ACT_LAYERS = 8
-# H100 SXM data-sheet peaks (700 W): HBM rate, float32 outside the tensor
-# cores, bf16 on the tensor cores (dense), from the dry-run's analysis
-# (one copy); popcount issues 16 results per clock per SM (CUDA
-# programming guide, compute capability 9.0), at the card's maximum SM
-# clock.
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.launch.analysis import (  # noqa: E402
-    BF16_FLOP_S, FP32_FLOP_S, HBM_BYTES_S)
-POPC_PER_CLK_SM = 16
 
 
 def check(cond: bool, what: str) -> None:
@@ -997,21 +996,51 @@ def decode_gate(cfg, model32, tok, dev):
     return rel_err(dec, full[:, half]), bound
 
 
-def print_bounds(cfg, model, stats, cuda):
-    """The decode step's and the prefill's bounds (``lm_bounds``) beside
-    their measured times; fills stats."""
-    bounds = lm_bounds(cfg, model, LM_BATCH, LM_PROMPT, LM_GEN)
-    for name, key in (("decode", "decode_p50_ms"), ("prefill", "prefill_ms")):
-        ms, by, nbytes, fl16, fl32 = bounds[name]
-        stats[f"{name}_bound_ms"] = ms
-        stats[f"{name}_bound_by"] = by
-        stats[f"{name}_bound_bytes"] = nbytes
-        print(f"{name} bound {ms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB at "
-              f"{HBM_BYTES_S / 1e12:.2f} TB/s = "
-              f"{1e3 * nbytes / HBM_BYTES_S:.3f} ms; {fl16 / 1e12:.4f} "
-              f"TFLOP bf16 at {BF16_FLOP_S / 1e12:.0f} TFLOP/s + "
-              f"{fl32 / 1e12:.4f} TFLOP fp32 at {FP32_FLOP_S / 1e12:.0f}); "
-              f"measured {stats[key]:.3f} ms host clock"
+def step_account(cfg, shape, **kw) -> dict:
+    """cfg's step at shape accounted on one card
+    (``launch.dryrun.one_device_record``, the step counted on the meta
+    device): its floor and what bounds it, and the counts phase 30 holds
+    the card's step to, JSON-able."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.one_device_record(cfg, shape, **kw)
+    r = rec["roofline"]
+    return dict(floor_ms=1e3 * r["step_floor_s"], bound=r["bound"],
+                bound_by="operations" if r["bound"] == "compute"
+                else "bytes", compute_ms=1e3 * r["compute_s"],
+                memory_ms=1e3 * r["memory_s"], min_bytes=r["min_bytes"],
+                flops_by_dtype=rec["global"]["flops_by_dtype"],
+                launches=rec["launches"],
+                transient_peak_bytes=rec["global"]["transient_peak_bytes"],
+                eager_bytes=rec["global"]["eager_bytes"],
+                count_s=rec["count_s"])
+
+
+def step_floors(cfg, stats, cuda):
+    """The decode step's and the prefill's floors beside their measured
+    times: each the one-device account (``step_account``, bf16, batch
+    LM_BATCH) of a decode step on a LM_PROMPT + LM_GEN cache and of a
+    LM_PROMPT-token prefill.  Fills stats: ``{name}_bound_ms``,
+    ``_bound_by``, ``_bound_bytes`` and the account, ``{name}_account``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    for name, key, shape in (
+            ("decode", "decode_p50_ms",
+             ShapeConfig("lm_decode", LM_PROMPT + LM_GEN, LM_BATCH,
+                         "decode")),
+            ("prefill", "prefill_ms",
+             ShapeConfig("lm_prefill", LM_PROMPT, LM_BATCH, "prefill"))):
+        acc = step_account(cfg, shape, dtype=torch.bfloat16)
+        stats.update({f"{name}_account": acc,
+                      f"{name}_bound_ms": acc["floor_ms"],
+                      f"{name}_bound_by": acc["bound_by"],
+                      f"{name}_bound_bytes": acc["min_bytes"]})
+        print(f"{name} bound {acc['floor_ms']:.4f} ms, the one-device "
+              f"account's floor ({acc['bound_by']}: "
+              f"{acc['min_bytes'] / 1e9:.3f} GB = {acc['memory_ms']:.4f} "
+              f"ms, FLOPs {json.dumps(acc['flops_by_dtype'])} = "
+              f"{acc['compute_ms']:.4f} ms; counted in "
+              f"{acc['count_s']:.2f} s); measured {stats[key]:.3f} ms host "
+              f"clock"
               + (f", {stats[name + '_device_ms']:.3f} ms device busy, "
                  f"{stats[name + '_kernels']} kernel launches"
                  if cuda else ""))
@@ -1048,7 +1077,7 @@ def lm_phase(args, cfg, dev, zero_counts, read_counts,
           f"launches none of the eight kernels: {launched}")
     print(f"the {cfg.name} serving path launched none of the eight "
           f"kernels of the table (their launch counts stayed 0)")
-    print_bounds(cfg, model, stats, cuda)
+    step_floors(cfg, stats, cuda)
 
     # gate: decode step against teacher-forced logits, fp32, full depth
     # (or decode_layers)
@@ -1092,98 +1121,6 @@ def lm_phase(args, cfg, dev, zero_counts, read_counts,
     return model, stats
 
 
-def lm_bounds(cfg, model, batch, prompt, gen):
-    """The least times of one decode step and of the prefill on the card
-    at the data-sheet rates.  Bytes: every weight read once (an untied
-    embedding's batch rows only; the MTP head, which no step reads, not at
-    all), the caches' filled state read (a decode step; the median one,
-    its attention caches holding prompt + gen // 2 positions: GQA keys and
-    values, a windowed layer's last ``window``, MLA's latent c_kv and
-    k_pe) and written (one position, or the prefill's), the recurrent
-    states read and written (RG-LRU h in float32 and its conv state; the
-    SSD state (B, P, N, H) in float32 and its two conv states), the last
-    logits written; over HBM_BYTES_S.  Operations as the port computes
-    them: every weight matrix once per token in bf16 (MoE: the expert
-    products over the whole (E, B, cap, D) buffer, as the reference), over
-    BF16_FLOP_S; the sequence mixing in float32 (GQA scores and PV; MLA's
-    expanded prefill and its absorbed decode over the latent; the SSD
-    scan's chunk matmuls), over FP32_FLOP_S.  Returns {name: (ms,
-    bound_by, bytes, bf16 flops, fp32 flops)}."""
-    from repro_torch.models.moe import capacity
-    from repro_torch.models.ssm import _dims
-    d, v = cfg.d_model, cfg.vocab_size
-    isz = model.embed.element_size()
-    experts = ("moe.w_gate", "moe.w_up", "moe.w_down")
-    wbytes = 0
-    per_token = d * v                               # the unembed
-    for kind, blk in zip(model.kinds, model.blocks, strict=True):
-        for name, prm in blk.named_parameters():
-            wbytes += prm.numel() * prm.element_size()
-            if prm.ndim >= 2 and not (kind == "moe" and name in experts):
-                per_token += prm.numel()
-    for prm in model.final_norm.parameters():
-        wbytes += prm.numel() * prm.element_size()
-    # the unembedding reads its whole table: a tied one is the embedding
-    table = model.embed if model.unembed is None else model.unembed
-    wbytes += table.numel() * table.element_size()
-    h = cfg.num_heads
-    kvl, rope_d = cfg.kv_lora_rank, cfg.qk_rope_dim
-
-    def mixing(kind, s, ctx):
-        """(fp32 flops, cache bytes read and written) of one layer."""
-        if kind == "ssm":
-            di, heads, n, hd = _dims(cfg)
-            state = batch * heads * n * hd * 4
-            conv = batch * (cfg.conv_width - 1) * (di + 2 * n) * isz
-            if s == 1:
-                return 4 * batch * n * heads * hd, 2 * (state + conv)
-            l = min(256, s)
-            fl = (2 * batch * s * l * n + 2 * batch * s * l * heads * hd
-                  + 4 * batch * s * n * heads * hd)
-            return fl, state + conv
-        if kind == "rec":
-            r = cfg.rnn_width
-            st = batch * r * 4 + batch * (cfg.conv_width - 1) * r * isz
-            return 0, (2 * st if s == 1 else st)
-        if cfg.attn_type == "mla":
-            row = (kvl + rope_d) * isz * batch
-            if s == 1:
-                return (2 * batch * h * (kvl + rope_d) * ctx
-                        + 2 * batch * h * kvl * ctx), (ctx + 1) * row
-            qk = cfg.qk_nope_dim + rope_d
-            return (2 * batch * h * (qk + cfg.v_head_dim) * s * s,
-                    s * row)
-        rows = ctx
-        if kind == "attn" and cfg.window:
-            rows = min(ctx, cfg.window)
-        row = 2 * cfg.num_kv_heads * cfg.head_dim * isz * batch
-        if s == 1:
-            return 4 * batch * h * cfg.head_dim * rows, (rows + 1) * row
-        return 4 * batch * h * cfg.head_dim * s * s, s * row
-
-    out = {}
-    for name, s, ctx in (("decode", 1, prompt + gen // 2),
-                         ("prefill", prompt, prompt)):
-        t = batch * s
-        fl16 = 2 * t * per_token
-        if cfg.num_experts:
-            n_moe = model.kinds.count("moe")
-            fl16 += n_moe * 2 * cfg.num_experts * batch * capacity(cfg, s) \
-                * 3 * d * cfg.moe_d_ff
-        fl32, cache = 0, 0
-        for kind in model.kinds:
-            f, c = mixing(kind, s, ctx)
-            fl32 += f
-            cache += c
-        nbytes = wbytes + t * d * isz + cache + batch * v * isz
-        t_bytes = nbytes / HBM_BYTES_S
-        t_ops = fl16 / BF16_FLOP_S + fl32 / FP32_FLOP_S
-        out[name] = (1e3 * max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations",
-                     nbytes, fl16, fl32)
-    return out
-
-
 def moe_phase(args, cfg, dev, zero_counts, read_counts, cut_layers,
               redraw_gate=False):
     """The MoE serving path at cfg's width (bf16 weights from ``--seed``):
@@ -1216,7 +1153,7 @@ def moe_phase(args, cfg, dev, zero_counts, read_counts, cut_layers,
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
                             device=dev)
     engine, _ = serve_timed(cfg, model, prompts, gen, dev, stats)
-    print_bounds(cfg, model, stats, cuda)
+    step_floors(cfg, stats, cuda)
     launched = read_counts()
     check(not any(launched.values()), f"the MoE path launches none of the "
           f"eight kernels: {launched}")
@@ -1575,13 +1512,10 @@ def activation_phase(args, cfg, model, dev, zero_counts, read_counts,
                                                                fam.v)]), 10)
         k1_dev_ms = profiled_ms(
             torch, lambda: bilinear_hash_seeded(emb, seeds1, BITS), 5)
-        t_bytes = (n * d * 4 + 4 + n * 4) / HBM_BYTES_S
-        t_ops = 4 * n * d * BITS / FP32_FLOP_S
+        k1_b = ops.hash_bound(n, d, BITS, seeded=True)
         stats["k1"] = dict(ms=k1_ms, device_ms=k1_dev_ms,
                            plain_ms=k1_plain_ms, library_ms=k1_lib_ms,
-                           bound_ms=1e3 * max(t_bytes, t_ops),
-                           bound_by="operations" if t_ops > t_bytes
-                           else "bytes")
+                           bound_ms=k1_b.ms, bound_by=k1_b.by)
         print(f"kernel 1 at the activation shape ({n} x {d}, k {BITS}, 1 "
               f"table): {k1_ms} ms (CUDA events), device "
               f"{'not measured' if k1_dev_ms is None else k1_dev_ms} ms "
@@ -1595,19 +1529,15 @@ def activation_phase(args, cfg, model, dev, zero_counts, read_counts,
                             10)
         k4_dev_ms = profiled_ms(torch, lambda: bilinear_hash(emb, lf.u, lf.v),
                                 5, "bilinear_hash_kernel")
-        t_bytes = (n * d * 4 + 2 * d * BITS * 4 + n * 4) / HBM_BYTES_S
-        t_ops = 4 * n * d * BITS / FP32_FLOP_S
-        k4_bound = 1e3 * max(t_bytes, t_ops)
+        k4_b = ops.hash_bound(n, d, BITS, seeded=False)
         stats["k4"] = dict(ms=k4_ms, device_ms=k4_dev_ms,
                            plain_ms=k4_plain_ms, library_ms=k4_lib_ms,
-                           bound_ms=k4_bound,
-                           bound_by="operations" if t_ops > t_bytes
-                           else "bytes")
+                           bound_ms=k4_b.ms, bound_by=k4_b.by)
         print(f"kernel 4 at the activation shape ({n} x {d}, k {BITS}): "
               f"{k4_ms} ms (CUDA events), device "
               f"{'not measured' if k4_dev_ms is None else k4_dev_ms} ms "
               f"(torch.profiler), plain {k4_plain_ms} ms, library route "
-              f"{k4_lib_ms} ms, bound {k4_bound} ms "
+              f"{k4_lib_ms} ms, bound {k4_b.ms} ms "
               f"({stats['k4']['bound_by']})")
     return launches, stats
 
@@ -1639,59 +1569,40 @@ def card_step(dev, fn) -> dict:
 
 
 def account_phase(lm_cfg, train_stats, lm_stats) -> dict:
-    """Phase 30: the dry-run account of phase 29's train cell and phase
-    19's decode cell on one device, against the card's step of each (its
+    """Phase 30: the one-device accounts of phase 29's train step and
+    phase 19's decode step (``step_account``, made there: each step's
+    printed bound), against the card's step of each (its
     ``card_step``): FLOPs equal exactly; the train step's transient peak
     within 10% of the allocator's peak above what the step started with
     (the decode step's, tens of MB, printed beside it); each measured p50
     at least 0.95 of the account's floor.  Returns the readings."""
-    import torch
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.launch import dryrun
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.sharding.rules import MeshShape
-    one = MeshShape(("data", "model"), (1, 1))
-    cells = {
-        "train": (get_arch(TRAIN_ARCH),
-                  ShapeConfig("phase29", TRAIN_SEQ, TRAIN_BATCH, "train"),
-                  dict(dtype=torch.float32, remat=False, num_microbatches=1,
-                       opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
-                                           total_steps=TRAIN_STEPS)),
-                  train_stats, "step_p50_ms", "step_kernels", "bound_ms"),
-        "decode": (lm_cfg, ShapeConfig("phase19", LM_PROMPT + LM_GEN,
-                                       LM_BATCH, "decode"),
-                   dict(dtype=torch.bfloat16), lm_stats, "decode_p50_ms",
-                   "decode_kernels", "decode_bound_ms"),
-    }
+    cells = {"train": (TRAIN_ARCH, f"{TRAIN_BATCH} x {TRAIN_SEQ}, float32",
+                       train_stats, train_stats["account"], "step_p50_ms",
+                       "step_kernels"),
+             "decode": (lm_cfg.name, f"{LM_BATCH} x {LM_PROMPT + LM_GEN}, "
+                        "bfloat16", lm_stats, lm_stats["decode_account"],
+                        "decode_p50_ms", "decode_kernels")}
     out = {}
-    for name, (cfg, shape, kw, stats, p50_key, prof_key, bound_key) \
-            in cells.items():
-        counts = dryrun.count_step(cfg, shape, **kw)
-        rec = dryrun.record(dryrun.account(cfg, shape, one, counts))
+    for name, (arch, shape, stats, acc, p50_key, prof_key) in cells.items():
         card = stats["card_step"]
-        floor_ms = 1e3 * rec["roofline"]["step_floor_s"]
+        floor_ms = acc["floor_ms"]
         p50 = stats.get(p50_key, float("nan"))
-        r = dict(flops_by_dtype=counts["flops_by_dtype"],
+        r = dict(flops_by_dtype=acc["flops_by_dtype"],
                  card_flops_by_dtype=card["flops_by_dtype"],
-                 launches=counts["launches"],
+                 launches=acc["launches"],
                  card_counter_launches=card["launches"],
                  profiler_launches=stats.get(prof_key),
-                 transient_peak_bytes=counts["transient_peak"],
+                 transient_peak_bytes=acc["transient_peak_bytes"],
                  card_counter_peak_bytes=card["transient_peak_bytes"],
                  card_peak_delta_bytes=card.get("peak_delta_bytes"),
-                 eager_bytes=counts["eager_bytes"],
+                 eager_bytes=acc["eager_bytes"],
                  card_eager_bytes=card["eager_bytes"],
-                 min_bytes=rec["roofline"]["min_bytes"],
-                 floor_ms=floor_ms, bound=rec["roofline"]["bound"],
-                 compute_ms=1e3 * rec["roofline"]["compute_s"],
-                 memory_ms=1e3 * rec["roofline"]["memory_s"],
-                 p50_ms=p50, floor_share=floor_ms / p50,
-                 hand_bound_ms=stats.get(bound_key),
-                 count_s=counts["count_s"])
+                 min_bytes=acc["min_bytes"], floor_ms=floor_ms,
+                 bound=acc["bound"], compute_ms=acc["compute_ms"],
+                 memory_ms=acc["memory_ms"], p50_ms=p50,
+                 floor_share=floor_ms / p50, count_s=acc["count_s"])
         out[name] = r
-        print(f"{name} ({cfg.name}, {shape.global_batch} x "
-              f"{shape.seq_len}, {kw['dtype']}): account FLOPs "
+        print(f"{name} ({arch}, {shape}): account FLOPs "
               f"{json.dumps(r['flops_by_dtype'])}, the card's "
               f"{json.dumps(r['card_flops_by_dtype'])}; launches: account "
               f"{r['launches']}, the card's counter "
@@ -1703,9 +1614,9 @@ def account_phase(lm_cfg, train_stats, lm_stats) -> dict:
               + (f"{r['card_peak_delta_bytes'] / 2**30:.4f} GiB"
                  if r["card_peak_delta_bytes"] is not None else "n/a")
               + f"; floor {floor_ms:.4f} ms ({r['bound']}: compute "
-              f"{r['compute_ms']:.4f}, memory {r['memory_ms']:.4f}) beside "
-              f"the hand bound {r['hand_bound_ms']} ms; measured p50 "
-              f"{p50:.3f} ms: floor share {r['floor_share']:.4f}")
+              f"{r['compute_ms']:.4f}, memory {r['memory_ms']:.4f}); "
+              f"measured p50 {p50:.3f} ms: floor share "
+              f"{r['floor_share']:.4f}")
         check(r["flops_by_dtype"] == r["card_flops_by_dtype"],
               f"the {name} step's FLOPs on the card equal the account's")
         check(p50 >= 0.95 * floor_ms, f"the {name} step's p50 {p50} ms is "
@@ -1795,21 +1706,6 @@ def contracts_phase(build_mod) -> dict:
     return {"points": points, "plans": plans["launches"],
             "dma_per_sm": plans["dma_per_sm"], "widest": widest,
             "static_smem": smem}
-
-
-def train_bounds(cfg, n_params, batch, seq, itemsize=4):
-    """The least time of one float32 train step on the card: 6 N tokens
-    flops (forward and backward of every weight) plus the attention
-    scores' 3 x 4 B H S^2 hd per layer, at FP32_FLOP_S; then AdamW's seven
-    passes over the parameters' bytes (parameters read and written, the
-    gradient read, both moments read and written) at HBM_BYTES_S.
-    Returns (ms, matmul ms, AdamW ms, flops, AdamW bytes)."""
-    attn = 3 * 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
-    flops = 6 * n_params * batch * seq + cfg.num_layers * attn
-    adam_bytes = 7 * n_params * itemsize
-    t_mm = 1e3 * flops / FP32_FLOP_S
-    t_adam = 1e3 * adam_bytes / HBM_BYTES_S
-    return t_mm + t_adam, t_mm, t_adam, flops, adam_bytes
 
 
 def step_gap(cfg, tree, batch, dev, opt_cfg, control=False):
@@ -1905,6 +1801,7 @@ def train_phase(args, dev, zero_counts, read_counts):
     import signal
     import numpy as np
     import torch
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import REDUCED
     from repro_torch.core.functions import strict_fp32
     from repro_torch.data.tokens import SyntheticTokenStream
@@ -2021,9 +1918,13 @@ def train_phase(args, dev, zero_counts, read_counts):
         model, tr.opt_state, batch))
     print("one train step on its own and under the account's counter: "
           + json.dumps(stats["card_step"]))
-    bound = train_bounds(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
-    stats.update(bound_ms=bound[0], bound_matmul_ms=bound[1],
-                 bound_adamw_ms=bound[2])
+    # the step's floor: its one-device account (held to the card in
+    # phase 30)
+    acc = step_account(cfg, ShapeConfig("phase29", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), dtype=torch.float32,
+                       opt_cfg=opt_cfg, remat=False, num_microbatches=1)
+    stats.update(account=acc, bound_ms=acc["floor_ms"],
+                 bound_by=acc["bound_by"])
     print(f"losses: step 1 {losses[0]:.5f}, step {TRAIN_CKPT_AT} "
           f"{losses[TRAIN_CKPT_AT - 1]:.5f}, step {TRAIN_STEPS} "
           f"{losses[-1]:.5f}; step p50 "
@@ -2035,11 +1936,12 @@ def train_phase(args, dev, zero_counts, read_counts):
           f"save call snapshots to the host, the write runs on its thread) "
           f"{json.dumps(stats['ckpt_writes_s'])}; peak "
           f"{stats.get('peak_gib', float('nan')):.3f} GiB")
-    print(f"train step bound {bound[0]:.3f} ms ({bound[3] / 1e12:.3f} "
-          f"TFLOP at {FP32_FLOP_S / 1e12:.0f} TFLOP/s fp32 = "
-          f"{bound[1]:.3f} ms, + AdamW {bound[4] / 1e9:.2f} GB at "
-          f"{HBM_BYTES_S / 1e12:.2f} TB/s = {bound[2]:.3f} ms); measured "
-          f"p50 {stats.get('step_p50_ms', float('nan')):.3f} ms")
+    print(f"train step bound {acc['floor_ms']:.4f} ms, the one-device "
+          f"account's floor ({acc['bound_by']}: FLOPs "
+          f"{json.dumps(acc['flops_by_dtype'])} = {acc['compute_ms']:.4f} "
+          f"ms, {acc['min_bytes'] / 1e9:.3f} GB = {acc['memory_ms']:.4f} "
+          f"ms; counted in {acc['count_s']:.2f} s); measured p50 "
+          f"{stats.get('step_p50_ms', float('nan')):.3f} ms")
     loader.close()
     # the cut run never reached its step-TRAIN_STEPS checkpoint
     shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS}", ignore_errors=True)
@@ -2441,7 +2343,7 @@ def main() -> int:
         bilinear_hash_plain, bilinear_hash_seeded,
         bilinear_hash_seeded_plain)
     from repro_torch.kernels.hamming import (
-        DISTANCE_LIBRARY, FUSED_LIBRARY, LIBRARY as SCAN_LIB, cand_encoding,
+        DISTANCE_LIBRARY, FUSED_LIBRARY, LIBRARY as SCAN_LIB,
         hamming_distance, hamming_distance_batch,
         hamming_distance_batch_plain, hamming_distance_plain,
         hamming_topk_fused, hamming_topk_fused_plain, hamming_topk_hist,
@@ -2540,20 +2442,12 @@ def main() -> int:
         torch, lambda: bilinear_hash_seeded_plain(x, seeds, BITS), 3)
     w_words = codes_k.shape[-1]
 
-    def hash_bound(rows):
-        """(bound ms, bound_by) of hashing rows x d for all tables."""
-        t_bytes = (rows * d * 4 + TABLES * 4
-                   + TABLES * rows * w_words * 4) / HBM_BYTES_S
-        t_ops = 4 * rows * d * BITS * TABLES / FP32_FLOP_S
-        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                           else "bytes")
-
     # the query shape is where serving launches it: once per micro-batch
     q_hash_ms = cuda_ms(torch, lambda: bilinear_hash_seeded(w0, seeds, BITS),
                         50)
     q_hash_plain_ms = cuda_ms(
         torch, lambda: bilinear_hash_seeded_plain(w0, seeds, BITS), 50)
-    q_bound_ms, q_bound_by = hash_bound(BATCH)
+    q_bound = ops.hash_bound(BATCH, d, BITS, g=TABLES, seeded=True)
     # the device's own time per call (the generation and the product), so
     # the host's share of the event time shows
     q_busy, q_prof = device_profile(torch, lambda: [
@@ -2564,8 +2458,8 @@ def main() -> int:
           f"(torch.profiler) {q_busy / 50} ms per call "
           f"(launches in 50 calls: "
           f"{json.dumps({k: v[1] for k, v in q_prof.items()})}), "
-          f"plain {q_hash_plain_ms} ms, bound {q_bound_ms} ms "
-          f"({q_bound_by})")
+          f"plain {q_hash_plain_ms} ms, bound {q_bound.ms} ms "
+          f"({q_bound.by})")
     _, f_prof = device_profile(torch, lambda: [
         bilinear_hash_seeded(x, seeds, BITS) for _ in range(3)])
     print(f"hash at the fit shape, device time per call (torch.profiler): "
@@ -2573,9 +2467,10 @@ def main() -> int:
           + json.dumps({k: v[0] / 3 for k, v in f_prof.items()}))
     for line in ptxas_lines(_build.build_log(HASH_LIB), "bh_seeded"):
         print(f"  ptxas {HASH_LIB}: {line}")
-    bound_ms, bound_by = hash_bound(n)
+    fit_bound = ops.hash_bound(n, d, BITS, g=TABLES, seeded=True)
     print(f"hash at the fit shape ({n} x {d}): kernel {hash_ms} ms, "
-          f"plain {hash_plain_ms} ms, bound {bound_ms} ms ({bound_by})")
+          f"plain {hash_plain_ms} ms, bound {fit_bound.ms} ms "
+          f"({fit_bound.by})")
     # the library route: the stacked strict-fp32 product the serving path
     # takes for materialised (learned) factors, timed on these factors
     lib_ms = cuda_ms(torch, lambda: library_hash(x, factors), 5)
@@ -2593,7 +2488,7 @@ def main() -> int:
         replaces="src/repro/kernels/bilinear_hash.py:125",
         # codes are bits: the largest difference is 1 if any bit differs
         max_abs_err=int(ratios.numel() + q_ratios.numel() > 0), ms=hash_ms,
-        plain_ms=hash_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        plain_ms=hash_plain_ms, bound_ms=fit_bound.ms, bound_by=fit_bound.by,
         library_ms=lib_ms)
 
     # -- 4. scan kernels vs plain at the query shape ------------------------
@@ -2678,22 +2573,16 @@ def main() -> int:
     for label, c, qc, act, packs, selects in scan_cases:
         scan_case(label, c, qc, SCAN_L, active=act, packs=packs,
                   selects=selects)
-    popc_s = POPC_PER_CLK_SM * sms * max_clock_mhz * 1e6
+    clock_hz = max_clock_mhz * 1e6
 
-    def scan_bound(groups, rows, nq, l, live_rows, active_bytes):
-        """(bound ms, bound_by) of one block-local scan: codes, active and
-        queries read once, the pack-16 candidates written once; one
-        popcount per live row, query and word, 16 per clock per SM."""
-        rb = ops._block_rows(rows, 4096)
-        d_dtype, i_dtype, _ = cand_encoding("16", w_words, rb)
-        cand_bytes = groups * -(-rows // rb) * nq * min(l, rb) * (
-            torch.empty(0, dtype=d_dtype).element_size()
-            + torch.empty(0, dtype=i_dtype).element_size())
-        t_bytes = (groups * (rows + nq) * w_words * 4 + active_bytes
-                   + cand_bytes) / HBM_BYTES_S
-        t_ops = groups * live_rows * nq * w_words / popc_s
-        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                           else "bytes")
+    def card_scan_bound(c, nq, l, act):
+        """kernels 2, 3 and 5's bound (``ops.scan_bound``) of one
+        block-local scan of codes c against nq queries a group, active
+        mask act (or None), at this card's SMs and maximum SM clock."""
+        return ops.scan_bound(
+            c.shape[1], c.shape[2], nq, l, g=c.shape[0],
+            live_rows=None if act is None else int(act.sum()),
+            active=act is not None, sms=sms, clock_hz=clock_hz)
 
     # the redesigned kernels 2 and 5 at the shapes of their paths: CUDA
     # events over back-to-back calls, the profiler's device time, the bound
@@ -2710,9 +2599,7 @@ def main() -> int:
     for shape, (c, qc, l, act) in shapes.items():
         rows = c.shape[1]
         rb = ops._block_rows(rows, 4096)
-        live = rows if act is None else int(act.sum())
-        bound = scan_bound(c.shape[0], rows, qc.shape[1], l, live,
-                           0 if act is None else 4 * rows)
+        bound = card_scan_bound(c, qc.shape[1], l, act)
         for name, kern, frag in (
                 ("hamming_topk_hist", hamming_topk_hist, "topk_hist_kernel"),
                 ("hamming_topk_fused", hamming_topk_fused,
@@ -2725,12 +2612,12 @@ def main() -> int:
             dev_ms = kernel_device_ms(prof, frag)
             check(dev_ms is not None, f"the profiler saw {name} ({shape})")
             scan_times[(name, shape)] = dict(events_ms=ev, device_ms=dev_ms,
-                                             bound_ms=bound[0],
-                                             bound_by=bound[1])
+                                             bound_ms=bound.ms,
+                                             bound_by=bound.by)
             print(f"{name} at {shape} (G={c.shape[0]}, n={rows}, "
                   f"B={qc.shape[1]}, l={min(l, rb)}, pack 16): CUDA events "
                   f"{ev} ms, device time (torch.profiler) {dev_ms} ms; bound "
-                  f"{bound[0]} ms ({bound[1]})")
+                  f"{bound.ms} ms ({bound.by})")
     for lib, frag in ((SCAN_LIB, "topk_hist_kernel"),
                       (FUSED_LIBRARY, "topk_fused_kernel")):
         for line in ptxas_lines(_build.build_log(lib), frag):
@@ -2738,13 +2625,14 @@ def main() -> int:
     scan_ms = scan_times[("hamming_topk_hist", "serving")]["events_ms"]
     scan_plain_ms = cuda_ms(torch, lambda: hamming_topk_hist_plain(
         codes_k, q, l_k, bn, None, "16"), 3)
-    scan_bound_ms, scan_bound_by = scan_bound(TABLES, n, BATCH, SCAN_L, n, 0)
+    serving_bound = card_scan_bound(codes_k, BATCH, SCAN_L, None)
     records["hamming_topk_hist"] = dict(
         name="hamming_topk_hist", route="cuda",
         source="src/repro_torch/kernels/csrc/hamming_topk_hist.cu",
         replaces="src/repro/kernels/hamming.py:429",
         max_abs_err=scan_err["hist"], ms=scan_ms, plain_ms=scan_plain_ms,
-        bound_ms=scan_bound_ms, bound_by=scan_bound_by, library_ms=None)
+        bound_ms=serving_bound.ms, bound_by=serving_bound.by,
+        library_ms=None)
     # kernel 5 at the streaming base's shape: ~1M rows, 5% tombstoned
     base5 = ("hamming_topk_fused", "base, 5% tombstoned")
     fused_ms = scan_times[base5]["events_ms"]
@@ -3171,37 +3059,29 @@ def main() -> int:
     q_fh_plain_ms = cuda_ms(torch, lambda: bilinear_hash_plain(w0, u0, v0),
                             50)
 
-    def factor_hash_bound(rows):
-        """(bound ms, bound_by) of hashing rows x d with one (d, k) pair."""
-        t_bytes = (rows * d * 4 + 2 * d * BITS * 4
-                   + rows * w_words * 4) / HBM_BYTES_S
-        t_ops = 4 * rows * d * BITS / FP32_FLOP_S
-        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                           else "bytes")
-
     fh_dev_ms = profiled_ms(torch, lambda: bilinear_hash(x, u0, v0), 5,
                             "bilinear_hash_kernel")
     print(f"factor hash at the fit shape, device time of the kernel "
           f"(torch.profiler): "
           f"{'not measured' if fh_dev_ms is None else fh_dev_ms} ms")
-    fh_bound, fh_bound_by = factor_hash_bound(n)
-    q_fh_bound, q_fh_bound_by = factor_hash_bound(BATCH)
+    fh_b = ops.hash_bound(n, d, BITS, seeded=False)
+    q_fh_b = ops.hash_bound(BATCH, d, BITS, seeded=False)
     fh_lib_ms = cuda_ms(torch, lambda: library_hash(x, [(u0, v0)]), 10)
     q_fh_lib_ms = cuda_ms(torch, lambda: library_hash(w0, [(u0, v0)]), 50)
     print(f"library route (two torch.matmul + sign + pack, one table): "
           f"fit shape {fh_lib_ms} ms, query shape {q_fh_lib_ms} ms")
     print(f"factor hash at the fit shape ({n} x {d}, k {BITS}): kernel "
-          f"{fh_ms} ms, plain {fh_plain_ms} ms, bound {fh_bound} ms "
-          f"({fh_bound_by}); at the query shape ({BATCH} x {d}): kernel "
-          f"{q_fh_ms} ms, plain {q_fh_plain_ms} ms, bound {q_fh_bound} ms "
-          f"({q_fh_bound_by})")
+          f"{fh_ms} ms, plain {fh_plain_ms} ms, bound {fh_b.ms} ms "
+          f"({fh_b.by}); at the query shape ({BATCH} x {d}): kernel "
+          f"{q_fh_ms} ms, plain {q_fh_plain_ms} ms, bound {q_fh_b.ms} ms "
+          f"({q_fh_b.by})")
     records["bilinear_hash"] = dict(
         name="bilinear_hash", route="cuda",
         source="src/repro_torch/kernels/csrc/bilinear_hash.cu",
         replaces="src/repro/kernels/bilinear_hash.py:52",
         # codes are bits: the largest difference is 1 if any bit differs
         max_abs_err=int(f_ratios.numel() + fq_ratios.numel() > 0), ms=fh_ms,
-        plain_ms=fh_plain_ms, bound_ms=fh_bound, bound_by=fh_bound_by,
+        plain_ms=fh_plain_ms, bound_ms=fh_b.ms, bound_by=fh_b.by,
         library_ms=fh_lib_ms)
 
     # -- 9. LBH chain kernel vs plain at the learner's shapes --------------
@@ -3251,13 +3131,11 @@ def main() -> int:
     print(f"LBH chain at m = {LBH_SAMPLE}, CUDA events over 200 "
           f"back-to-back calls: kernel {chain_ev_ms} ms, plain "
           f"{chain_plain_ev_ms} ms per call")
-    m = LBH_SAMPLE
-    t_bytes = (m * m * 4 + 4 * m * 4) / HBM_BYTES_S
-    t_ops = (2 * m * m + 6 * m) / FP32_FLOP_S
-    print(f"LBH chain at m = {m}, device time per call (torch.profiler; "
-          f"R stays in L2 across back-to-back calls, as in the step loop): "
-          f"kernel {chain_ms} ms, plain {chain_plain_ms} ms, bound "
-          f"{1e3 * max(t_bytes, t_ops)} ms (R from HBM)")
+    chain_b = ops.lbh_chain_bound(LBH_SAMPLE)
+    print(f"LBH chain at m = {LBH_SAMPLE}, device time per call "
+          f"(torch.profiler; R stays in L2 across back-to-back calls, as in "
+          f"the step loop): kernel {chain_ms} ms, plain {chain_plain_ms} "
+          f"ms, bound {chain_b.ms} ms ({chain_b.by}; R from HBM)")
     for line in ptxas_lines(_build.build_log(CHAIN_LIB), "lbh_chain_kernel"):
         print(f"  ptxas {CHAIN_LIB}: {line}")
     records["lbh_chain"] = dict(
@@ -3265,9 +3143,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/lbh_chain.cu",
         replaces="src/repro/kernels/lbh_grad.py:44", max_abs_err=chain_err,
         ms=chain_ms, plain_ms=chain_plain_ms,
-        bound_ms=1e3 * max(t_bytes, t_ops),
-        bound_by="operations" if t_ops > t_bytes else "bytes",
-        library_ms=None)
+        bound_ms=chain_b.ms, bound_by=chain_b.by, library_ms=None)
     del r_full, p_full, q_full
 
     # -- 10. LBH path: learned single-table index ---------------------------
@@ -3476,7 +3352,8 @@ def main() -> int:
         "hash_kernel_s": fh_ms / 1e3, "host_table_s": t_table}))
     print(f"one bit's {LBH_STEPS} Nesterov steps (median wall; device busy "
           f"under torch.profiler, idle share 1 - busy / wall, None where "
-          f"the profiler saw no device work): " + json.dumps(bit_times))
+          f"the profiler saw no device work; chain_ms per launch beside its "
+          f"bound {chain_b.ms} ms): " + json.dumps(bit_times))
     del loop
 
     # -- 13. kernel layer: distances and the pipelined scan -----------------
@@ -3559,7 +3436,7 @@ def main() -> int:
           f"{turns} ms; device time (torch.profiler): dma {dma_dev_ms} ms, "
           f"hist {hist_dev_ms} ms (dma / hist "
           f"{dma_dev_ms / hist_dev_ms if dma_dev_ms and hist_dev_ms else None})"
-          f"; bound {scan_bound_ms} ms ({scan_bound_by}); plain "
+          f"; bound {serving_bound.ms} ms ({serving_bound.by}); plain "
           f"{scan_plain_ms} ms (phase 4)")
     for line in ptxas_lines(_build.build_log(SCAN_LIB),
                             "topk_hist_dma_kernel"):
@@ -3569,23 +3446,14 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/hamming_topk_hist.cu",
         replaces="src/repro/kernels/hamming.py:496",
         max_abs_err=scan_err["hist_dma"], ms=dma_ms, plain_ms=scan_plain_ms,
-        bound_ms=scan_bound_ms, bound_by=scan_bound_by, library_ms=None)
+        bound_ms=serving_bound.ms, bound_by=serving_bound.by,
+        library_ms=None)
 
     def bits_f32(codes):
         """(rows, 32 W) float32 0/1 bits of packed codes (rows, W)."""
         sh = torch.arange(32, dtype=torch.int32, device=codes.device)
         return ((codes[..., None] >> sh) & 1).reshape(
             codes.shape[0], -1).to(torch.float32)
-
-    def distance_bound(queries):
-        """(bound ms, bound_by) of one table's distances to `queries`:
-        codes and queries read once, a (queries, n) int32 output written
-        once; one popcount per row, query and word."""
-        t_bytes = (n * w_words + queries * w_words + queries * n) * 4 \
-            / HBM_BYTES_S
-        t_ops = n * queries * w_words / popc_s
-        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                           else "bytes")
 
     # the library column: torch.cdist(p=0) counts differing elements, the
     # Hamming distance over 0/1 bits; the unpacking is left out of its time
@@ -3620,25 +3488,25 @@ def main() -> int:
         busy["kernel"] = kernel_device_ms(prof, frag)
         check(busy["kernel"] is not None, f"the profiler saw {name}")
         dist_times[name] = {"events": ev, "device": busy}
-    b_bound, b_bound_by = distance_bound(BATCH)
-    s_bound, s_bound_by = distance_bound(1)
+    b_b, s_b = (ops.distance_bound(n, w_words, nq, sms=sms,
+                                   clock_hz=clock_hz) for nq in (BATCH, 1))
     print("distance kernels at the serving shape (one table, n "
           f"{n}, W {w_words}), ms per call, CUDA events over back-to-back "
           "calls and device time (torch.profiler), kernel / plain / "
           "torch.cdist(p=0) (unpacking not timed): " + json.dumps(dist_times)
-          + f"; bounds: batch (B={BATCH}) {b_bound} ms ({b_bound_by}), "
-          f"single {s_bound} ms ({s_bound_by})")
-    for name, err, bound, bound_by, src in (
-            ("hamming_distance_batch", dist_err["batch"], b_bound, b_bound_by,
+          + f"; bounds: batch (B={BATCH}) {b_b.ms} ms ({b_b.by}), "
+          f"single {s_b.ms} ms ({s_b.by})")
+    for name, err, bound, src in (
+            ("hamming_distance_batch", dist_err["batch"], b_b,
              "src/repro/kernels/hamming.py:516"),
-            ("hamming_distance", dist_err["single"], s_bound, s_bound_by,
+            ("hamming_distance", dist_err["single"], s_b,
              "src/repro/kernels/hamming.py:123")):
         dev_t = dist_times[name]["device"]
         records[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/hamming_distance.cu",
             replaces=src, max_abs_err=err, ms=dev_t["kernel"],
-            plain_ms=dev_t["plain"], bound_ms=bound, bound_by=bound_by,
+            plain_ms=dev_t["plain"], bound_ms=bound.ms, bound_by=bound.by,
             library_ms=dev_t["library"])
     del lib_b, lib_1, c_bits, dist_b
 
@@ -3669,14 +3537,6 @@ def main() -> int:
     ng_factors = [seeded_projections(s_, ng_d, BITS, dev) for s_ in ng_seeds]
     ug, vg = ng_factors[0]
 
-    def wide_bound(tables):
-        """(bound ms, bound_by) of hashing newsgroups into `tables`."""
-        t_bytes = (ng_n * ng_d * 4 + tables * ng_n * w_words * 4
-                   + (2 * ng_d * BITS * 4 if tables == 1 else 0)) / HBM_BYTES_S
-        t_ops = 4 * ng_n * ng_d * BITS * tables / FP32_FLOP_S
-        return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                           else "bytes")
-
     for name, kern, plain, factors_g in (
             ("bilinear_hash_seeded",
              lambda: bilinear_hash_seeded(xg, ng_seeds, BITS),
@@ -3699,10 +3559,11 @@ def main() -> int:
         # back without kernel records, and the sessions after them too.
         k_ms = cuda_ms(torch, kern, 5)
         p_ms = cuda_ms(torch, plain, 2)
-        b_ms, b_by = wide_bound(len(factors_g))
+        wide_b = ops.hash_bound(ng_n, ng_d, BITS, g=len(factors_g),
+                                seeded=name == "bilinear_hash_seeded")
         print(f"{name} at {ng_n} x {ng_d}, k {BITS}, {len(factors_g)} "
               f"table(s): kernel {k_ms} ms, plain {p_ms} ms (CUDA events "
-              f"over back-to-back calls), bound {b_ms} ms ({b_by})")
+              f"over back-to-back calls), bound {wide_b.ms} ms ({wide_b.by})")
         del got, r
     del xg, ng_factors, ug, vg
     torch.cuda.empty_cache()
@@ -3748,8 +3609,10 @@ def main() -> int:
             _, prof = device_profile(
                 torch, lambda: [call() for _ in range(5)], (frag,))
             dev_times[name] = kernel_device_ms(prof, frag)
+        wide_b = card_scan_bound(codes_w, BATCH, SCAN_L, act_i)
         print(f"W={wv} (G=2, n={rows}, B={BATCH}, l={SCAN_L}, pack 16, 5% "
-              f"tombstoned), l = block_n = 8192 identical for all three; ms "
+              f"tombstoned), l = block_n = 8192 identical for all three; "
+              f"bound {wide_b.ms} ms ({wide_b.by}); ms "
               f"per call (CUDA events): " + json.dumps(times)
               + "; device time (torch.profiler; null where it saw no "
               "kernel): " + json.dumps(dev_times)

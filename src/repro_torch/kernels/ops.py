@@ -5,6 +5,8 @@ versions; the merge is the same PyTorch code on both.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.functions import strict_fp32
@@ -22,6 +24,8 @@ from repro_torch.kernels.hamming import (cand_encoding, hamming_distance,
                                          hamming_topk_fused,
                                          hamming_topk_hist,
                                          hamming_topk_hist_dma)
+from repro_torch.utils import h100
+from repro_torch.utils.bits import WORD, n_words
 
 SUBLANE = 8   # row-block sizes are multiples of 8, as in the JAX package
 
@@ -36,6 +40,167 @@ def _block_rows(n: int, block_n: int) -> int:
     geometry, so block-local outputs line up with its kernel's)."""
     bn = min(block_n, max(256, n))
     return -(-bn // SUBLANE) * SUBLANE
+
+
+# -- the reference kernels' cost models ---------------------------------------
+#
+# Integer counts of the JAX package's kernel designs, the same numbers as
+# its kernels/ops.py gives: HBM bytes of a launch (block-local candidate
+# pairs written and read back, the point stream once per table) and the
+# element-ops of the fused scan's selection.  They count a design's
+# traffic, not a time; the H100 bounds below count the least work.
+
+# bytes of one emitted (distance, id) candidate pair per pack width:
+# int32 + int32, int16 + int16, uint8 + int16 (the ids stay 16-bit for the
+# block-local row range; only the distance narrows further)
+CAND_PAIR_BYTES = {"none": 8, "16": 4, "8": 3}
+
+
+def scan_cand_model(n: int, b: int, l: int, block_n: int = 4096,
+                    g: int = 1, pack: str = "16") -> int:
+    """HBM bytes of the fused scan's candidate emission alone: the
+    (g, grid, B, l) block-local (distance, id) pairs, written once by the
+    kernel and read back once by the merge.  Packing shrinks this term
+    (2x for int16 pairs, 8/3x for uint8 distances); at B = 32, l = 128
+    it rivals the code stream itself."""
+    bn = _block_rows(n, block_n)
+    grid = -(-n // bn)
+    return 2 * g * grid * b * min(l, bn) * CAND_PAIR_BYTES[pack]
+
+
+def scan_traffic_model(n: int, w: int, b: int, l: int = 16,
+                       block_n: int = 4096, fused: bool = True,
+                       g: int = 1, pack: str = "16") -> int:
+    """HBM bytes of one batched Hamming scan launch over g stacked code
+    groups: the codes streamed once (g n W 4) and the queries read
+    (g B W 4), then, unfused, the full g (n, B) int32 distance matrices
+    written and read back for the top-l (2 g n B 4) or, fused, the
+    block-local candidate pairs (``scan_cand_model``; ``pack`` picks the
+    pair width).  Every term scales with g.  The selection (hist or
+    argmin) does not change the traffic: both emit the same pairs;
+    ``scan_select_model`` counts the term that differs."""
+    code_bytes = g * (n * w * 4 + b * w * 4)
+    if not fused:
+        return code_bytes + 2 * g * n * b * 4
+    return code_bytes + scan_cand_model(n, b, l, block_n, g, pack)
+
+
+def hash_traffic_model(n: int, d: int, k: int, g: int = 1,
+                       seeded: bool = False) -> int:
+    """HBM bytes of hashing n points into g tables of k bits, per table:
+    the points streamed (n d 4), the materialised (d, k) U, V factors
+    (2 d k 4), or nothing when ``seeded`` (the kernel regenerates them
+    from the table's 32-bit seed), and the packed codes written (n W 4).
+    The point stream counts once per table, as the grouped kernel reads
+    x again for each group."""
+    w = n_words(k)
+    weights = 0 if seeded else 2 * d * k * 4
+    return g * (n * d * 4 + weights + n * w * 4)
+
+
+def scan_select_model(n: int, b: int, l: int = 16, k: int = 128,
+                      block_n: int = 4096, select: str = "hist",
+                      g: int = 1) -> int:
+    """Element-ops the fused scan spends on selection in one launch (the
+    popcounts, the same for both, are left out).
+
+    - ``argmin``: l rounds of masked argmin over each (block_n, B) tile,
+      about 3 tile passes a round: 3 l block_n B a block, linear in l.
+    - ``hist``: the distance-CDF bisection, ceil(log2(32 W + 1)) tile
+      passes, plus 5 fixed passes, and an emission bisection over the
+      slot cumsum, 2 ceil(log2(block_n)) l B: flat in l in the tile term.
+
+    The two cross near l = 4; from l = 8 up the histogram is cheaper."""
+    bn = _block_rows(n, block_n)
+    grid = -(-n // bn)
+    l_k = min(l, bn)
+    w = n_words(k)
+    if select == "argmin":
+        per_block = 3 * l_k * bn * b
+    else:
+        cdf_steps = max(1, (32 * w).bit_length())
+        emit_steps = max(1, (bn - 1).bit_length())
+        per_block = (cdf_steps + 5) * bn * b + 2 * emit_steps * l_k * b
+    return g * grid * per_block
+
+
+# -- the H100 bound of each kernel family -------------------------------------
+#
+# The least time the card could take for a kernel's work: the larger of
+# the bytes it must move (each input read once, each output written once)
+# over the HBM rate and its operations over their peak rate
+# (``utils/h100.py``'s data-sheet constants; popcounts at ``h100.popc_s``
+# of the SMs and clock given).
+
+
+class Bound(NamedTuple):
+    seconds: float
+    by: str              # "bytes" or "operations": the larger term
+    bytes: int
+    operations: int
+
+    @property
+    def ms(self) -> float:
+        return 1e3 * self.seconds
+
+
+def _bound(nbytes: int, ops: int, ops_per_s: float) -> Bound:
+    t_bytes = nbytes / h100.HBM_BYTES_S
+    t_ops = ops / ops_per_s
+    return Bound(max(t_bytes, t_ops),
+                 "operations" if t_ops > t_bytes else "bytes", nbytes, ops)
+
+
+def hash_bound(n: int, d: int, k: int, *, g: int = 1,
+               seeded: bool) -> Bound:
+    """Kernels 1 (``seeded``) and 4: n points of d features into g tables
+    of k bits.  Bytes: x once (n d 4), the codes (g n W 4), and the
+    factors (g 2 d k 4) or, seeded, the seeds (g 4).  Operations: the two
+    projections and their product, 4 n d k g, at the float32 rate.  x is
+    read once here and once per table in ``hash_traffic_model``: the
+    bound is the least work, the model the reference kernel's design."""
+    factors = g * 4 if seeded else g * 2 * d * k * 4
+    nbytes = n * d * 4 + g * n * n_words(k) * 4 + factors
+    return _bound(nbytes, 4 * n * d * k * g, h100.FP32_FLOP_S)
+
+
+def scan_bound(n: int, w: int, b: int, l: int, *, g: int = 1,
+               live_rows: int | None = None, active: bool = False,
+               block_n: int = 4096, pack: str = "16",
+               sms: int = h100.SMS,
+               clock_hz: float = h100.MAX_SM_CLOCK_HZ) -> Bound:
+    """Kernels 2, 3 and 5: the block-local smallest-l scan of g groups of
+    n codes of W words against B queries each.  Bytes: codes and queries
+    once (g (n + B) W 4), the int32 active mask (n 4) when there is one,
+    and the candidates ``cand_encoding`` writes for ``pack`` (g grid B
+    min(l, block) pairs).  Operations: one popcount per live row, query
+    and word (g live B W; live_rows defaults to n)."""
+    rb = _block_rows(n, block_n)
+    d_dtype, i_dtype, _ = cand_encoding(pack, w, rb)
+    pair = sum(torch.empty((), dtype=t).element_size()
+               for t in (d_dtype, i_dtype))
+    cand = g * -(-n // rb) * b * min(l, rb) * pair
+    nbytes = g * (n + b) * w * 4 + (n * 4 if active else 0) + cand
+    live = n if live_rows is None else live_rows
+    return _bound(nbytes, g * live * b * w, h100.popc_s(sms, clock_hz))
+
+
+def distance_bound(n: int, w: int, b: int, *, sms: int = h100.SMS,
+                   clock_hz: float = h100.MAX_SM_CLOCK_HZ) -> Bound:
+    """Kernels 6 (B queries) and 7 (B = 1): the (B, n) int32 distances of
+    n codes of W words.  Bytes: codes, queries and distances once
+    ((n W + B W + B n) 4).  Operations: n B W popcounts."""
+    return _bound((n * w + b * w + b * n) * 4, n * b * w,
+                  h100.popc_s(sms, clock_hz))
+
+
+def lbh_chain_bound(m: int) -> Bound:
+    """Kernel 8: one LBH chain over an m-point sample (the time bound,
+    not ``kernels.ref.lbh_chain_bound``, the rounding bound of its
+    elements).  Bytes: R (m, m) and p, q in, s q, s p out ((m^2 + 4 m)
+    4).  Operations: 2 m^2 + 6 m at the float32 rate."""
+    return _bound((m * m + 4 * m) * 4, 2 * m * m + 6 * m,
+                  h100.FP32_FLOP_S)
 
 
 def load_libraries() -> None:

@@ -1,6 +1,6 @@
 """Roofline terms of a dry-run cell against the NVIDIA H100 80GB HBM3's
-data-sheet rates, and the ring model of the parameter collectives its
-shardings imply: the counterpart of the JAX package's launch/analysis.py
+data-sheet rates (``utils/h100.py``), and the ring model of the parameter
+collectives its shardings imply: the counterpart of the JAX package's launch/analysis.py
 (TPU v5e constants) and of hlo_stats.py's collective costing.
 
 The floor is a lower bound: ``compute_s`` from the FLOPs split by dtype
@@ -40,18 +40,8 @@ import numpy as np
 
 from repro_torch.launch.mesh import NODE_SIZE
 from repro_torch.sharding.rules import MeshShape, data_axes
-
-# NVIDIA H100 80GB HBM3 (SXM5, 700 W) data-sheet rates, per GPU
-CARD = "NVIDIA H100 80GB HBM3"
-BF16_FLOP_S = 989e12       # dense bf16 on the tensor cores
-FP32_FLOP_S = 67e12        # float32 outside the tensor cores (strict fp32)
-HBM_BYTES_S = 3.35e12
-NVLINK_BYTES_S = 450e9     # NVLink 4, per direction
-IB_BYTES_S = 50e9          # InfiniBand NDR, one 400 Gb/s port per GPU
-HBM_CAPACITY = 80e9        # bytes: the "80 GB" the card's name states
-
-FLOP_RATES = {"bfloat16": BF16_FLOP_S, "float16": BF16_FLOP_S,
-              "float32": FP32_FLOP_S}
+from repro_torch.utils.h100 import (FLOP_RATES, FP32_FLOP_S, HBM_BYTES_S,
+                                    IB_BYTES_S, NVLINK_BYTES_S)
 
 
 def wire_bytes(op: str, size: float, g: int) -> float:

@@ -49,6 +49,7 @@ from repro_torch.serve.engine import make_prefill_step, make_serve_step
 from repro_torch.sharding.rules import (MeshShape, batch_spec, param_rules,
                                         param_shardings, shard_count)
 from repro_torch.train.step import make_train_step
+from repro_torch.utils import h100
 
 # per-arch training knobs (activation memory / optimizer-state pressure),
 # the reference's
@@ -59,6 +60,7 @@ TRAIN_OVERRIDES = {
     "minitron-8b": dict(num_microbatches=2),
 }
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ONE_DEVICE = MeshShape(("data", "model"), (1, 1))
 
 
 def count_params(cfg: ArchConfig):
@@ -262,6 +264,15 @@ def account(cfg: ArchConfig, shape: ShapeConfig, mesh: MeshShape,
             "collectives": coll.summary, "min_bytes": min_bytes}
 
 
+def one_device_record(cfg: ArchConfig, shape: ShapeConfig, **kw) -> dict:
+    """The record of cfg's step at shape on one card: ``count_step(cfg,
+    shape, **kw)`` accounted on a 1 x 1 mesh.  Its roofline's
+    ``step_floor_s`` is the step's floor, the one yardstick of a step's
+    bound (``chip_smoke.py`` prints it beside each measured step)."""
+    return record(account(cfg, shape, ONE_DEVICE,
+                          count_step(cfg, shape, **kw)))
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_path: str | None = None, counts: dict | None = None) -> dict:
     """The record of one cell (``record``), printed, and written to
@@ -299,7 +310,7 @@ def record(cell: dict) -> dict:
         "arch": cfg.name, "shape": shape.name,
         "mesh": "multi" if multi else "single",
         "mesh_shape": dict(zip(mesh.axis_names, mesh.sizes)),
-        "devices": n_dev, "kind": shape.kind, "card": analysis.CARD,
+        "devices": n_dev, "kind": shape.kind, "card": h100.CARD,
         "split": "ideal", "collectives_modelled": "params",
         "build_s": c["build_s"], "count_s": c["count_s"],
         "flops_per_device": flops_total / n_dev,
@@ -317,7 +328,7 @@ def record(cell: dict) -> dict:
                    "eager_bytes": c["eager_bytes"],
                    "transient_peak_bytes": c["transient_peak"],
                    "ops": c["ops"]},
-        "fits_80g": cell["memory"]["peak_bytes"] <= analysis.HBM_CAPACITY,
+        "fits_80g": cell["memory"]["peak_bytes"] <= h100.HBM_CAPACITY,
         "params_total": total, "params_active": active,
         "tokens_per_step": tokens,
         "model_flops_total": analysis.model_flops(active, tokens, shape.kind),
