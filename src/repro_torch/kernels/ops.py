@@ -278,29 +278,56 @@ def hamming_topk_grouped(codes, queries, l: int, *, block_n: int = 4096,
     ``hamming_topk_fused``); None reads REPRO_FUSED_SELECT.  dma=True routes
     the hist select through the pipelined kernel
     (``hamming_topk_hist_dma``); argmin ignores it, as in the JAX package.
-    All are bit-identical after the merge.
+    All are bit-identical after the merge.  The two stages, the scan and
+    the merge, are ``hamming_scan_blocks`` and ``merge_scan_blocks``.
     """
+    return merge_scan_blocks(
+        hamming_scan_blocks(codes, queries, l, block_n=block_n,
+                            select=select, dma=dma, active=active,
+                            pack=pack), l)
+
+
+class ScanBlocks(NamedTuple):
+    """The scan kernel's per-block candidates, before the merge: dists and
+    ids (G, grid, B, l_k) in the kernel's packed emission, the rows a
+    block holds, and the pack's distance sentinel."""
+    dists: torch.Tensor
+    ids: torch.Tensor
+    block_rows: int
+    sentinel: int
+
+
+def hamming_scan_blocks(codes, queries, l: int, *, block_n: int = 4096,
+                        select: str | None = None, dma: bool = False,
+                        active=None, pack: str | None = None) -> ScanBlocks:
+    """The first stage of ``hamming_topk_grouped`` (same arguments): the
+    one scan launch, each block's smallest min(l, its rows)."""
     if env_fused_select(select) == "argmin":
         scan = hamming_topk_fused
     else:
         scan = hamming_topk_hist_dma if dma else hamming_topk_hist
     pack = env_cand_pack(pack)
-    g, n, w = codes.shape
-    b = queries.shape[1]
+    n, w = codes.shape[1:]
     bn = _block_rows(n, block_n)
     l_k = min(l, bn)    # a block holds bn rows; l_k = bn already emits all
     act = None if active is None else active.to(torch.int32).contiguous()
     cd, ci = scan(codes.contiguous(), queries.contiguous(), l_k, bn, act,
                   pack)
-    grid_n = cd.shape[1]
+    return ScanBlocks(cd, ci, bn, cand_encoding(pack, w, bn)[2])
+
+
+def merge_scan_blocks(blocks: ScanBlocks, l: int):
+    """The second stage of ``hamming_topk_grouped``: the blocks' candidates
+    merged into each (group, query)'s smallest l, (dists, ids) (G, B, l)."""
+    cd, ci, bn, d_sent = blocks
+    g, grid_n, b, l_k = cd.shape
     # widen: the pack sentinel maps back to DIST_SENTINEL (real distances
     # sit strictly below it — cand_encoding guards) and block-local ids get
     # their block's base.  Sentinel slots keep a garbage id until the
     # final where() turns it into -1.
-    _, _, d_sent = cand_encoding(pack, w, bn)
     cd = cd.to(torch.int32)
     cd = torch.where(cd == d_sent, DIST_SENTINEL, cd)
-    base = torch.arange(grid_n, dtype=torch.int32, device=codes.device) * bn
+    base = torch.arange(grid_n, dtype=torch.int32, device=cd.device) * bn
     ci = ci.to(torch.int32) + base.view(1, grid_n, 1, 1)
     # second-stage merge over grid·l_k candidates per (group, query):
     # lexicographic (distance, id), exactly the order of a full top-l

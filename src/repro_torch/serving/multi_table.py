@@ -36,6 +36,7 @@ from repro_torch.core.search import (DIST_SENTINEL,
 from repro_torch.core.tables import SingleHashTable, keys_of
 from repro_torch.kernels import ops
 from repro_torch.serving import batch_query as bq
+from repro_torch.utils import trace
 from repro_torch.utils.bits import from_numpy_u32, to_numpy_u32
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.mesh import shard_count
@@ -47,8 +48,8 @@ class BatchQueryResult:
     margins: np.ndarray      # (B,) f32
     nonempty: np.ndarray     # (B,) bool — any candidate survived the lookup?
     candidates: list[np.ndarray]  # per-query short-lists (union over tables)
-    lookup_s: float
-    rerank_s: float
+    lookup_s: float          # probe path; 0 on the scan path (its spans
+    rerank_s: float          # time it: ``utils.trace``)
     table_hits: np.ndarray   # (L,) per-table yield: probe path = bucket
                              # candidates found; scan path = scanned top-l
                              # slots holding a live row
@@ -58,6 +59,13 @@ class BatchQueryResult:
     # whether it fell short of 1 (a single index always covers every row)
     coverage: float = 1.0
     degraded: bool = False
+
+
+def _read(*ts: torch.Tensor) -> list[np.ndarray]:
+    """Blocking device-to-host reads, one a tensor, counted as ``reads`` in
+    the open span."""
+    trace.add("reads", len(ts))
+    return [t.cpu().numpy() for t in ts]
 
 
 class MultiTableIndex:
@@ -357,12 +365,16 @@ class MultiTableIndex:
         fused scan launch for all L tables, or with a mesh one per shard
         (``core.search.hamming_topk_grouped_sharded``)."""
         codes_dev, _ = self._scan_state(mesh, axis)
-        qcodes = bq.hash_queries_all(self.families, w)
+        with trace.span("index.hash"):
+            qcodes = bq.hash_queries_all(self.families, w)
         cfg = self.config
         if mesh is None:
-            return ops.hamming_topk_grouped(codes_dev, qcodes, l,
-                                            select=cfg.fused_select,
-                                            pack=cfg.cand_pack)
+            with trace.span("index.scan"):
+                blocks = ops.hamming_scan_blocks(codes_dev, qcodes, l,
+                                                 select=cfg.fused_select,
+                                                 pack=cfg.cand_pack)
+            with trace.span("index.merge", entry=True, exit=True):
+                return ops.merge_scan_blocks(blocks, l)
         return hamming_topk_grouped_sharded(
             codes_dev, qcodes, l, mesh, axis,
             n_valid=self._live_rows.shape[0], select=cfg.fused_select,
@@ -390,68 +402,73 @@ class MultiTableIndex:
         self._require_fit("query_scan_batch")
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
-        t0 = time.perf_counter()
         if not self.active.any():
             ids_pad = np.full((b, topk), -1, np.int64)
             m_pad = np.full((b, topk), np.inf, np.float32)
             return BatchQueryResult(
                 np.full(b, -1, np.int64), np.full(b, np.inf, np.float32),
                 np.zeros(b, dtype=bool),
-                [np.empty(0, np.int64) for _ in range(b)],
-                time.perf_counter() - t0, 0.0,
+                [np.empty(0, np.int64) for _ in range(b)], 0.0, 0.0,
                 np.zeros(self.num_tables, dtype=np.int64),
                 ids_topk=ids_pad if topk > 1 else None,
                 margins_topk=m_pad if topk > 1 else None)
         _, idx = self._scan(w, l, mesh, shard_axis)
-        return self.answer_from_scan(w, idx, topk, mask, t0)
+        return self.answer_from_scan(w, idx, topk, mask)
 
     def answer_from_scan(self, w, idx: torch.Tensor, topk: int = 1,
-                         mask=None, t0: float | None = None
-                         ) -> BatchQueryResult:
+                         mask=None) -> BatchQueryResult:
         """The second half of ``query_scan_batch``: union, dedup and exact
         re-rank of a per-table scan result idx (L, B, l) of live-row
-        positions (-1 = empty slot), on the device.  t0: when the query
-        started (default now), for the lookup timing."""
-        if t0 is None:
-            t0 = time.perf_counter()
+        positions (-1 = empty slot), on the device.  The scan path keeps no
+        host timers (``lookup_s`` and ``rerank_s`` are 0): its stages are
+        the spans ``index.union``, ``index.rerank`` and ``index.readback``
+        (counts ``reads``, one per blocking read, and ``candidates``, the
+        unique candidates of the batch's queries; mark ``first_read``)."""
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         if self._codes_dev is None:
             self._scan_state()
         live_rows_dev = self._live_rows_dev     # any layout's: same rows
         n_live = self._live_rows.shape[0]
-        # per query, sort the L·l live-row ids and invalidate repeats and
-        # empty (-1) slots
-        flat = idx.permute(1, 0, 2).reshape(b, -1)
-        flat = torch.sort(flat, dim=1).values
-        uniq = flat >= 0
-        uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
-        grows = live_rows_dev[torch.clamp(flat, 0, n_live - 1).long()]
-        # mask narrows answers and re-rank, not the reported short-lists
-        mask_rows = self.mask_to_rows(mask)
-        valid = uniq if mask_rows is None else (
-            uniq & torch.from_numpy(mask_rows).to(self.device)[grows])
-        lookup_s = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        margins, top = margin_rerank_batch(
-            self.x, bq.as_float_tensor(w, self.device), grows, valid, topk)
-        margins = margins.cpu().numpy()
-        top = top.cpu().numpy().astype(np.int64)
-        top[~np.isfinite(margins)] = -1
-        if margins.shape[1] < topk:   # topk > L*l candidates: pad, not clip
-            padw = ((0, 0), (0, topk - margins.shape[1]))
-            margins = np.pad(margins, padw, constant_values=np.inf)
-            top = np.pad(top, padw, constant_values=-1)
-        top = self.rows_to_ids(top)
-        hits = (idx >= 0).sum(dim=(1, 2)).cpu().numpy().astype(np.int64)
-        grows_np = grows.cpu().numpy()
-        uniq_np, valid_np = uniq.cpu().numpy(), valid.cpu().numpy()
-        cands = [self.rows_to_ids(grows_np[i, uniq_np[i]]) for i in range(b)]
-        rerank_s = time.perf_counter() - t0
+        with trace.span("index.union", entry=True, exit=True) as union:
+            # per query, sort the L·l live-row ids and invalidate repeats
+            # and empty (-1) slots
+            flat = idx.permute(1, 0, 2).reshape(b, -1)
+            flat = torch.sort(flat, dim=1).values
+            uniq = flat >= 0
+            uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
+            grows = live_rows_dev[torch.clamp(flat, 0, n_live - 1).long()]
+            # mask narrows answers and re-rank, not the reported short-lists
+            mask_rows = self.mask_to_rows(mask)
+            valid = uniq if mask_rows is None else (
+                uniq & torch.from_numpy(mask_rows).to(self.device)[grows])
+            hits = (idx >= 0).sum(dim=(1, 2))
+        with trace.span("index.rerank", entry=union, exit=True) as rerank:
+            margins, top = margin_rerank_batch(
+                self.x, bq.as_float_tensor(w, self.device), grows, valid,
+                topk)
+        # its entry, the re-rank's exit, follows all of the batch's device
+        # work
+        with trace.span("index.readback", entry=rerank):
+            margins, = _read(margins)
+            trace.mark("first_read")
+            trace.anchor()
+            top, hits, grows_np, uniq_np, valid_np = _read(top, hits, grows,
+                                                           uniq, valid)
+            top = top.astype(np.int64)
+            top[~np.isfinite(margins)] = -1
+            if margins.shape[1] < topk:   # topk > L*l: pad, not clip
+                padw = ((0, 0), (0, topk - margins.shape[1]))
+                margins = np.pad(margins, padw, constant_values=np.inf)
+                top = np.pad(top, padw, constant_values=-1)
+            top = self.rows_to_ids(top)
+            hits = hits.astype(np.int64)
+            cands = [self.rows_to_ids(grows_np[i, uniq_np[i]])
+                     for i in range(b)]
+            trace.add("candidates", sum(c.size for c in cands))
         return BatchQueryResult(
             top[:, 0], margins[:, 0], valid_np.any(axis=1), cands,
-            lookup_s, rerank_s, hits,
+            0.0, 0.0, hits,
             ids_topk=top if topk > 1 else None,
             margins_topk=margins if topk > 1 else None)
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 
 import numpy as np
 
@@ -38,6 +38,7 @@ from repro_torch.core.indexer import QueryResult
 from repro_torch.serving import batch_query as bq
 from repro_torch.serving.multi_table import MultiTableIndex
 from repro_torch.serving.refresh import RefreshManager
+from repro_torch.utils import trace
 from repro_torch.utils.bits import to_numpy_u32
 from repro_torch.utils.mesh import shard_count
 
@@ -69,14 +70,18 @@ class HashQueryService:
         self._cache: OrderedDict[bytes, np.ndarray] = OrderedDict()
         self._cache_version = index.version
         self._pending: list[np.ndarray] = []
-        # counters
+        # counters.  ``lookup_s`` / ``rerank_s`` sum the index's own
+        # timers: a ``MultiTableIndex`` in scan mode keeps none (they stay
+        # 0), its stages are the spans of ``stats()["spans"]``.
         self.requests = 0
         self.batches = 0
         self.cache_hits = 0
         self.busy_s = 0.0
         self.lookup_s = 0.0
         self.rerank_s = 0.0
-        self.latencies_s: list[float] = []
+        # the newest micro-batches' latencies (bounded, as the async
+        # front end's)
+        self.latencies_s: deque[float] = deque(maxlen=65536)
         self.inserts = 0
         self.inserted_rows = 0
         self.deletes = 0
@@ -248,14 +253,16 @@ class HashQueryService:
                 for i in range(b)]
 
     def _answer_scan(self, ws: np.ndarray, mask) -> list[QueryResult]:
-        """Fused-scan backend: one grouped scan launch per micro-batch."""
-        t_start = time.perf_counter()
-        b = ws.shape[0]
-        res = self.index.query_scan_batch(ws, l=self.scan_l, mask=mask,
-                                          mesh=self.mesh,
-                                          shard_axis=self.shard_axis)
-        self._record(b, time.perf_counter() - t_start, res.lookup_s,
-                     res.rerank_s)
+        """Fused-scan backend: one grouped scan launch per micro-batch,
+        under one root span (``service.batch``)."""
+        with trace.root("service.batch", scope=id(self)):
+            t_start = time.perf_counter()
+            b = ws.shape[0]
+            res = self.index.query_scan_batch(ws, l=self.scan_l, mask=mask,
+                                              mesh=self.mesh,
+                                              shard_axis=self.shard_axis)
+            self._record(b, time.perf_counter() - t_start, res.lookup_s,
+                         res.rerank_s)
         self.last_coverage = float(res.coverage)
         if res.degraded:
             self.degraded_batches += 1
@@ -267,6 +274,11 @@ class HashQueryService:
     # -- counters ------------------------------------------------------------
 
     def stats(self) -> dict:
+        """Counters since construction; ``"spans"`` summarises this
+        service's micro-batches in the process's last trace session, as
+        far as it has been resolved (``utils.trace.summary``: per span
+        name its count, host self time, device wall and counts; empty when
+        none has recorded).  Waits for nothing."""
         lat = np.asarray(self.latencies_s) if self.latencies_s else np.zeros(1)
         return {
             "requests": self.requests,
@@ -295,4 +307,6 @@ class HashQueryService:
             "index_delta_uploads": getattr(self.index, "delta_uploads", 0),
             "refresh": (None if self.refresher is None
                         else self.refresher.stats()),
+            "spans": trace.summary(trace.last_session(resolve=False),
+                                   scope=id(self)),
         }
