@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--batches 16]
 
-Run from the repository root.  It builds the port's eight CUDA kernels
-(six libraries) from ``src/repro_torch/kernels/csrc``, holds each against
+Run from the repository root.  It builds the port's nine CUDA kernels
+(seven libraries) from ``src/repro_torch/kernels/csrc``, holds each against
 its plain PyTorch version at the shapes its path gives it, then drives four
 paths at full size on the Tiny-1M geometry (1,060,000 x 385 float32
 features, 10 classes, from ``--seed``):
@@ -12,7 +12,9 @@ features, 10 classes, from ``--seed``):
 - serving: ``MultiTableIndex(method="bh", bits=20, tables=4)`` fitted on the
   card and ``HashQueryService(mode="scan", scan_l=128)`` answering
   micro-batches of 32 hyperplane normals, checked against the plain scan
-  and an exhaustive scan;
+  and an exhaustive scan, its candidate-list kernel held to its plain
+  version on the phase's own union slots, and the pinned host memory that
+  a few thousand kept results hold read from the caching host allocator;
 - streaming ingest: ``LSMMultiTableIndex`` of the same configuration
   (``lsm_delta_threshold=0.02``) fitted on the 1,000,000 unlabelled rows
   behind ``AsyncHashQueryService(mode="scan", scan_l=128)``, with the
@@ -191,6 +193,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -201,6 +204,9 @@ ROOT = Path(__file__).resolve().parent
 
 N_LABELED, N_UNLABELED, D_GIST = 60_000, 1_000_000, 384
 BITS, TABLES, BATCH, SCAN_L = 20, 4, 32, 128
+# phase 5 keeps this many micro-batches' results to read the pinned host
+# memory they hold
+RETAIN_BATCHES = 2_000
 # the streaming path: 30 insert batches of 2,000 labelled rows, 40,000
 # deletes of base rows and 10,000 of inserted rows, at least 4 query
 # micro-batches per insert batch
@@ -1639,8 +1645,8 @@ def contracts_phase(build_mod) -> dict:
     reports, and each kernel's static shared memory is the ptxas
     report's."""
     import re
-    from repro_torch.kernels import bilinear_hash, contracts, hamming
-    from repro_torch.kernels import lbh_grad
+    from repro_torch.kernels import bilinear_hash, candidates, contracts
+    from repro_torch.kernels import hamming, lbh_grad
     findings = contracts.run()
     print(f"contract sweep: {len(contracts.sweep())} cases, findings "
           f"{findings}")
@@ -1692,7 +1698,8 @@ def contracts_phase(build_mod) -> dict:
                       (hamming.LIBRARY, "topk_hist_dma_kernel"),
                       (hamming.FUSED_LIBRARY, "topk_fused_kernel"),
                       (hamming.DISTANCE_LIBRARY, "distance_kernel"),
-                      (hamming.DISTANCE_LIBRARY, "distance_batch_kernel")):
+                      (hamming.DISTANCE_LIBRARY, "distance_batch_kernel"),
+                      (candidates.LIBRARY, "cand_lists_kernel")):
         lines = [ln for ln in ptxas_lines(build_mod.build_log(lib), frag)
                  if "registers" in ln]
         got = sorted({int(m.group(1)) if (m := re.search(
@@ -2350,6 +2357,8 @@ def main() -> int:
         hamming_topk_hist_dma, hamming_topk_hist_plain)
     from repro_torch.kernels.lbh_grad import (
         LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
+    from repro_torch.kernels.candidates import (
+        LIBRARY as LISTS_LIB, candidate_lists, candidate_lists_plain)
     from repro_torch.kernels.ref import lbh_chain_bound, sign_flip_ratios
     from repro_torch.svm.active import (ALConfig, make_selector,
                                         run_active_learning)
@@ -2359,6 +2368,7 @@ def main() -> int:
     from repro_torch.serving.cluster import ShardReplicaRouter
     from repro_torch.serving.faults import FaultPlan
     from repro_torch.serving.lsm import LSMMultiTableIndex
+    from repro_torch.serving import multi_table
     from repro_torch.serving.multi_table import MultiTableIndex
     from repro_torch.serving.service import HashQueryService
     from repro_torch.utils.bits import (flip_packed, from_numpy_u32,
@@ -2389,7 +2399,7 @@ def main() -> int:
     phase("2 build")
     t0 = time.perf_counter()
     libs = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY,
-            DISTANCE_LIBRARY)
+            DISTANCE_LIBRARY, LISTS_LIB)
     _build.build(libs)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
@@ -2653,7 +2663,7 @@ def main() -> int:
 
     all_kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
                    lbh_chain, hamming_topk_fused, hamming_topk_hist_dma,
-                   hamming_distance_batch, hamming_distance)
+                   hamming_distance_batch, hamming_distance, candidate_lists)
 
     def zero_counts():
         for kern in all_kernels:
@@ -2681,24 +2691,79 @@ def main() -> int:
     check(serve_launches["bilinear_hash_seeded"] > 0
           and serve_launches["hamming_topk_hist"] > 0,
           "both serving kernels launched on the serving path")
+    check(serve_launches["candidate_lists"] == args.batches,
+          "the candidate-list kernel launched once a micro-batch")
     check([f.seed for f in index.families] == seeds,
           "the index hashes with the seeds checked in phase 3")
     ans_ids = np.array([a.index for a in answers])
     ans_m = np.array([a.margin for a in answers])
     check(bool((ans_ids >= 0).all()), "every query has an answer")
 
-    # the same index answered through the plain scan on the card
+    # the same index answered through the plain scan on the card; the
+    # union slots that answer_from_scan hands kernel 9 are kept
     codes_dev = from_numpy_u32(np.stack(index.codes), dev)
+    union_slots = []
+
+    def kept_slots(flat, valid, id_map):
+        union_slots.append((flat.clone(), valid.clone()))
+        return candidate_lists(flat, valid, id_map)
+
+    multi_table.candidate_lists = kept_slots
     plain_ids = []
     for i in range(args.batches):
         wb = ws[i * BATCH:(i + 1) * BATCH]
         qc = bq.hash_queries_all(index.families, wb)
         _, idx = search.hamming_topk_grouped(codes_dev, qc, SCAN_L)
         plain_ids.append(index.answer_from_scan(wb, idx).ids)
+    multi_table.candidate_lists = candidate_lists
     plain_ids = np.concatenate(plain_ids)
     check(bool((plain_ids == ans_ids).all()),
           "answers identical to the plain scan's")
     print(f"answers identical to the plain scan for {ans_ids.size} queries")
+
+    # kernel 9 against its plain version on those slots (B 32, C = 4 x
+    # 128, the Tiny-1M id map), and with half the valid flags dropped, as
+    # a mask drops them
+    ids_dev = index._ids_dev
+    lists_err, kept = 0, 0
+    for flat, valid in union_slots:
+        half = valid & (torch.rand(valid.shape, device=dev) < 0.5)
+        for v in (valid, half):
+            got = candidate_lists(flat, v, ids_dev)
+            want = candidate_lists_plain(flat, v, ids_dev)
+            lists_err = max(lists_err, int((got - want).abs().max()))
+            check(torch.equal(got, want), "the candidate-list kernel equals "
+                  "its plain version on the serving path's union slots")
+        kept += int(got[:, -2].sum())
+    flat0, valid0 = union_slots[0]
+    lists_b, lists_c = flat0.shape
+
+    def lists_call():
+        return candidate_lists(flat0, valid0, ids_dev)
+
+    lists_ms = cuda_ms(torch, lists_call, 50)
+    lists_dev_ms = profiled_ms(torch, lists_call, 50, "cand_lists_kernel")
+    check(lists_dev_ms is not None, "the profiler saw cand_lists_kernel")
+    lists_plain_ms = cuda_ms(
+        torch, lambda: candidate_lists_plain(flat0, valid0, ids_dev), 50)
+    lists_bound = ops.candidate_lists_bound(
+        lists_b, lists_c, int(lists_call()[:, -2].sum()))
+    for line in ptxas_lines(_build.build_log(LISTS_LIB), "cand_lists"):
+        print(f"  ptxas {LISTS_LIB}: {line}")
+    print(f"candidate lists: kernel 9 equals its plain version on "
+          f"{2 * len(union_slots)} sets of union slots (B={lists_b}, "
+          f"C={lists_c}, {kept} unique candidates over the batches); "
+          f"at the first: CUDA events {lists_ms} ms (host-paced), device "
+          f"time (torch.profiler) {lists_dev_ms} ms, plain {lists_plain_ms} "
+          f"ms, bound {lists_bound.ms} ms ({lists_bound.by})")
+    records["candidate_lists"] = dict(
+        name="candidate_lists", route="cuda",
+        source="src/repro_torch/kernels/csrc/candidate_lists.cu",
+        # the JAX package builds the lists on the host
+        replaces=None, max_abs_err=lists_err, ms=lists_dev_ms,
+        plain_ms=lists_plain_ms, bound_ms=lists_bound.ms,
+        bound_by=lists_bound.by, library_ms=None)
+    del union_slots, flat0, valid0
 
     # exhaustive scan: the smallest margin over all rows, per query
     w_t = torch.from_numpy(ws).to(dev)
@@ -2756,6 +2821,41 @@ def main() -> int:
         stage_s["union_and_rerank"] += t3 - t2
     print("micro-batch stages, ms per batch (synchronised): " + json.dumps(
         {k: 1e3 * v / args.batches for k, v in stage_s.items()}))
+
+    # pinned host memory held by kept results: each batch's arrays are
+    # views of fresh pinned blocks (answer_from_scan's read-back)
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    if host_stats is None:
+        print("pinned host memory of kept results: not measured (this "
+              "torch has no torch.cuda.host_memory_stats)")
+    else:
+        def pinned():
+            st = host_stats()
+            return {k: st.get(f"{k}.current") for k in
+                    ("active_bytes", "allocated_bytes", "active_requests")}
+
+        gc.collect()
+        before = pinned()
+        retained = [service.query_batch(ws[(j % args.batches) * BATCH:
+                                           (j % args.batches + 1) * BATCH])
+                    for j in range(RETAIN_BATCHES)]
+        torch.cuda.synchronize()
+        held = pinned()
+        # the exact bytes a batch's arrays take: float32 margins, int64
+        # top and hits, the (B, L l + 2) int64 lists
+        exact = RETAIN_BATCHES * BATCH * (4 + 8 + 8
+                                          + (TABLES * SCAN_L + 2) * 8)
+        del retained
+        gc.collect()
+        # the allocator takes freed blocks back at its next allocation
+        torch.empty(1, pin_memory=True)
+        dropped = pinned()
+        print("pinned host memory, current (torch.cuda.host_memory_stats): "
+              f"before {json.dumps(before)}; with {RETAIN_BATCHES} batches "
+              f"of {BATCH} results kept {json.dumps(held)} (their arrays' "
+              f"exact bytes {exact}); after they are dropped "
+              f"{json.dumps(dropped)} (allocated bytes stay cached for "
+              f"later reads)")
 
     del service, codes_dev, codes_scan, m_min, i_min   # index: phase 18
     torch.cuda.empty_cache()
@@ -4176,6 +4276,7 @@ def main() -> int:
     kernels = []
     for name, rec in records.items():
         path = (shard_launches if name == "hamming_topk_fused"
+                else serve_launches if name == "candidate_lists"
                 else layer_launches if name in layer
                 else act_launches)
         rec["launches"] = path[name]

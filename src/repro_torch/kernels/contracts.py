@@ -1,4 +1,4 @@
-"""Launch contracts of the port's eight CUDA kernels, checked without a
+"""Launch contracts of the port's nine CUDA kernels, checked without a
 card: the counterpart of the JAX package's Pallas contract checker
 (src/repro/lint/kernel_contracts.py).
 
@@ -36,7 +36,8 @@ import dataclasses
 import functools
 from collections import Counter
 
-from repro_torch.kernels import _build, bilinear_hash, hamming, lbh_grad
+from repro_torch.kernels import (_build, bilinear_hash, candidates, hamming,
+                                  lbh_grad)
 
 MAX_SMEM = 232448            # bytes a block may opt into on sm_90
 MAX_GRID_X = 2 ** 31 - 1
@@ -336,12 +337,27 @@ def launch_lbh_chain(m: int) -> Launch:
                   static_smem=2 * LBH_COLS * 4)
 
 
+# -- the candidate lists (csrc/candidate_lists.cu) ---------------------------
+
+LISTS_THREADS = 1024
+
+
+def launch_cand_lists(b: int, c: int) -> Launch:
+    """One block a query over its c union slots; a warp's kept count each
+    in static shared memory."""
+    if b < 1 or c < 1:
+        raise ValueError(f"need b, c >= 1, got {b}, {c}")
+    return Launch("cand_lists_kernel", (b, 1, 1), LISTS_THREADS, 0,
+                  static_smem=4 * (LISTS_THREADS // 32))
+
+
 # static shared memory of each kernel's ptxas report (bytes)
 STATIC_SMEM = {"bilinear_hash_kernel": 0, "bh_seeded_product_kernel": 0,
                "bh_seeded_generate_kernel": 0, "lbh_chain_kernel":
                2 * LBH_COLS * 4, "topk_hist_kernel": 0,
                "topk_hist_dma_kernel": 0, "topk_fused_kernel": 0,
-               "distance_kernel": 0, "distance_batch_kernel": 0}
+               "distance_kernel": 0, "distance_batch_kernel": 0,
+               "cand_lists_kernel": 4 * (LISTS_THREADS // 32)}
 
 
 # -- checks --------------------------------------------------------------------
@@ -376,6 +392,7 @@ _RECKON = {
     "distance": launch_distance, "distance_batch": launch_distance,
     "bilinear_hash": launch_hash, "bilinear_hash_seeded": launch_hash,
     "lbh_chain": launch_lbh_chain,
+    "cand_lists": launch_cand_lists,
 }
 
 
@@ -416,6 +433,8 @@ def other_cases():
                        (n, d, k, g))
     for m in (1, 1024, 2048, 4000):
         yield Case("lbh_chain", f"m{m}", (m,))
+    for b, c in ((1, 1), (10, 6264), (20, 201), (32, 65536), (4096, 33)):
+        yield Case("cand_lists", f"b{b}-c{c}", (b, c))
 
 
 def sweep() -> list[tuple[Case, object]]:
@@ -462,6 +481,7 @@ _LIBRARY_SIGNATURES = {
     bilinear_hash.LIBRARY: bilinear_hash._SIGNATURES,
     bilinear_hash.FACTORS_LIBRARY: bilinear_hash._FACTORS_SIGNATURES,
     lbh_grad.LIBRARY: lbh_grad._SIGNATURES,
+    candidates.LIBRARY: candidates._SIGNATURES,
 }
 
 
@@ -483,7 +503,8 @@ def plan_export(case: Case) -> tuple[str, str, tuple]:
             "bilinear_hash": (bilinear_hash.FACTORS_LIBRARY, "bh_plan", a),
             "bilinear_hash_seeded": (bilinear_hash.LIBRARY, "bh_seeded_plan",
                                      a),
-            "lbh_chain": (lbh_grad.LIBRARY, "lbh_chain_plan", a)}[k]
+            "lbh_chain": (lbh_grad.LIBRARY, "lbh_chain_plan", a),
+            "cand_lists": (candidates.LIBRARY, "cand_lists_plan", a)}[k]
 
 
 def library_plan(case: Case):

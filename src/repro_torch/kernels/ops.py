@@ -15,6 +15,7 @@ from repro_torch.core.search import (DIST_SENTINEL, _pad_topk,
                                      lex_smallest)
 from repro_torch.kernels import _build
 from repro_torch.kernels import bilinear_hash as _bh
+from repro_torch.kernels import candidates as _cl
 from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import lbh_grad as _lbh
 from repro_torch.kernels.bilinear_hash import \
@@ -203,13 +204,24 @@ def lbh_chain_bound(m: int) -> Bound:
                   h100.FP32_FLOP_S)
 
 
+def candidate_lists_bound(b: int, c: int, kept: int) -> Bound:
+    """Kernel 9: B queries' candidate lists from C union slots each, kept
+    of them unique and live in all.  Bytes: the int32 slots and bool
+    valid flags once (B C 5), the kept rows' int64 ids once (kept 8), the
+    (B, C + 2) int64 lists once.  No arithmetic worth a rate: the bound
+    is bytes."""
+    return _bound(b * c * 5 + kept * 8 + b * (c + 2) * 8, 0,
+                  h100.FP32_FLOP_S)
+
+
 def load_libraries() -> None:
     """Build every kernel library not built yet (one nvcc per source, all
     started together) and load it, so that no first use falls inside a
     caller's deadline.  Raises as a failed build does."""
     libs = {_bh.LIBRARY: _bh._SIGNATURES,
             _bh.FACTORS_LIBRARY: _bh._FACTORS_SIGNATURES,
-            _lbh.LIBRARY: _lbh._SIGNATURES, **_hm._SIGNATURES}
+            _lbh.LIBRARY: _lbh._SIGNATURES, _cl.LIBRARY: _cl._SIGNATURES,
+            **_hm._SIGNATURES}
     _build.build(list(libs))
     for name, signatures in libs.items():
         _build.load(name, signatures)

@@ -35,6 +35,7 @@ from repro_torch.core.search import (DIST_SENTINEL,
                                      shard_rows)
 from repro_torch.core.tables import SingleHashTable, keys_of
 from repro_torch.kernels import ops
+from repro_torch.kernels.candidates import candidate_lists
 from repro_torch.serving import batch_query as bq
 from repro_torch.utils import trace
 from repro_torch.utils.bits import from_numpy_u32, to_numpy_u32
@@ -61,11 +62,28 @@ class BatchQueryResult:
     degraded: bool = False
 
 
-def _read(*ts: torch.Tensor) -> list[np.ndarray]:
-    """Blocking device-to-host reads, one a tensor, counted as ``reads`` in
-    the open span."""
-    trace.add("reads", len(ts))
-    return [t.cpu().numpy() for t in ts]
+def _read_back(device: torch.device, *ts: torch.Tensor) -> list[np.ndarray]:
+    """One blocking device-to-host read of ``ts``, counted as one of
+    ``reads`` in the open span, which then marks ``first_read`` and takes
+    the trace anchor.  On CUDA each tensor is copied without blocking into
+    a fresh pinned block of the caching host allocator, then the stream is
+    waited for once; the arrays returned keep their blocks alive, so no
+    later read writes into them.  So a kept array, or a view of it, holds
+    its whole block of page-locked memory until it is dropped; the
+    allocator rounds a block up to a power of two and keeps a freed one
+    for later reads."""
+    trace.add("reads", 1)
+    if device.type == "cuda":
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in ts]
+        for h, t in zip(host, ts):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+    else:
+        host = [t.cpu() for t in ts]
+    trace.mark("first_read")
+    trace.anchor()
+    return [h.numpy() for h in host]
 
 
 class MultiTableIndex:
@@ -101,6 +119,7 @@ class MultiTableIndex:
         self._scan_key = None
         self._live_rows: np.ndarray | None = None
         self._live_rows_dev = None
+        self._ids_dev = None    # stable ids of the live rows, int64
 
     # -- build ---------------------------------------------------------------
 
@@ -161,6 +180,7 @@ class MultiTableIndex:
         self._codes_dev = None
         self._live_rows = None
         self._live_rows_dev = None
+        self._ids_dev = None
 
     def _require_fit(self, op: str) -> None:
         if self.x_np is None:
@@ -344,7 +364,8 @@ class MultiTableIndex:
         stacked (L, n_live, W) codes on the index's device, or with a mesh
         their per-shard layout (``core.search.shard_rows``: padded
         host-side to the shard count, each shard's row range on its
-        device).  The live-row map stays on the index's device."""
+        device).  The live-row map and the live rows' stable ids
+        (``_ids_dev``) stay on the index's device."""
         key = None if mesh is None else (mesh, axis)
         if self._codes_dev is None or self._scan_key != key:
             self.scan_state_rebuilds += 1
@@ -356,6 +377,8 @@ class MultiTableIndex:
                                else shard_rows(stacked, mesh, axis))
             self._live_rows_dev = torch.from_numpy(self._live_rows).to(
                 self.device)
+            self._ids_dev = torch.from_numpy(
+                self.ids_np[self._live_rows]).to(self.device)
             self._scan_key = key
         return self._codes_dev, self._live_rows_dev
 
@@ -419,7 +442,13 @@ class MultiTableIndex:
                          mask=None) -> BatchQueryResult:
         """The second half of ``query_scan_batch``: union, dedup and exact
         re-rank of a per-table scan result idx (L, B, l) of live-row
-        positions (-1 = empty slot), on the device.  The scan path keeps no
+        positions (-1 = empty slot), on the device, where the union also
+        builds each query's candidate list in stable-id space
+        (``kernels.candidates``); the answers then cross to the host in
+        one read, and each list is a view of it.  On CUDA the arrays
+        returned are views of pinned host blocks (``_read_back``): a caller
+        that keeps one query's list keeps the batch's block of lists
+        pinned.  The scan path keeps no
         host timers (``lookup_s`` and ``rerank_s`` are 0): its stages are
         the spans ``index.union``, ``index.rerank`` and ``index.readback``
         (counts ``reads``, one per blocking read, and ``candidates``, the
@@ -443,6 +472,9 @@ class MultiTableIndex:
             valid = uniq if mask_rows is None else (
                 uniq & torch.from_numpy(mask_rows).to(self.device)[grows])
             hits = (idx >= 0).sum(dim=(1, 2))
+            # (B, L·l + 2): the unique candidates as stable ids, then the
+            # count and whether any slot is valid
+            lists = candidate_lists(flat, valid, self._ids_dev)
         with trace.span("index.rerank", entry=union, exit=True) as rerank:
             margins, top = margin_rerank_batch(
                 self.x, bq.as_float_tensor(w, self.device), grows, valid,
@@ -450,24 +482,21 @@ class MultiTableIndex:
         # its entry, the re-rank's exit, follows all of the batch's device
         # work
         with trace.span("index.readback", entry=rerank):
-            margins, = _read(margins)
-            trace.mark("first_read")
-            trace.anchor()
-            top, hits, grows_np, uniq_np, valid_np = _read(top, hits, grows,
-                                                           uniq, valid)
-            top = top.astype(np.int64)
-            top[~np.isfinite(margins)] = -1
+            margins, top, hits, lists = _read_back(self.device, margins, top,
+                                                   hits, lists)
+            # top holds live rows, the padding's too: only finite margins
+            # name answers
+            top = np.where(np.isfinite(margins), self.ids_np[top], -1)
             if margins.shape[1] < topk:   # topk > L*l: pad, not clip
                 padw = ((0, 0), (0, topk - margins.shape[1]))
                 margins = np.pad(margins, padw, constant_values=np.inf)
                 top = np.pad(top, padw, constant_values=-1)
-            top = self.rows_to_ids(top)
-            hits = hits.astype(np.int64)
-            cands = [self.rows_to_ids(grows_np[i, uniq_np[i]])
-                     for i in range(b)]
-            trace.add("candidates", sum(c.size for c in cands))
+            c = flat.shape[1]
+            counts = lists[:, c].tolist()
+            cands = [lists[i, :k] for i, k in enumerate(counts)]
+            trace.add("candidates", sum(counts))
         return BatchQueryResult(
-            top[:, 0], margins[:, 0], valid_np.any(axis=1), cands,
+            top[:, 0], margins[:, 0], lists[:, c + 1] != 0, cands,
             0.0, 0.0, hits,
             ids_topk=top if topk > 1 else None,
             margins_topk=margins if topk > 1 else None)

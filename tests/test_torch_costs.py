@@ -288,6 +288,15 @@ def test_bound_record_and_rates():
         ops.scan_bound(1000, 8, 32, 16, pack="8")
 
 
+def test_candidate_lists_bound_is_its_bytes():
+    """Kernel 9 at chip_smoke.py's serving shape (B 32, C = 4 tables x
+    128): the slots and flags once, the kept ids once, the lists once."""
+    bd = ops.candidate_lists_bound(B, G * L, 9000)
+    assert (bd.bytes, bd.operations) == (
+        B * G * L * 5 + 9000 * 8 + B * (G * L + 2) * 8, 0)
+    assert bd.seconds == bd.bytes / h100.HBM_BYTES_S and bd.by == "bytes"
+
+
 # -- the one-device step floor ------------------------------------------------
 
 @pytest.mark.parametrize("kind", ["decode", "prefill", "train"])

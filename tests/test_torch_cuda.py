@@ -35,6 +35,8 @@ from repro_torch.kernels.hamming import (  # noqa: E402
     hamming_distance_batch, hamming_distance_batch_plain,
     hamming_distance_plain, hamming_topk_fused, hamming_topk_fused_plain,
     hamming_topk_hist, hamming_topk_hist_dma, hamming_topk_hist_plain)
+from repro_torch.kernels.candidates import (  # noqa: E402
+    LIBRARY as LISTS_LIB)
 from repro_torch.kernels.lbh_grad import (  # noqa: E402
     LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
 from repro_torch.kernels.ref import (lbh_chain_bound,  # noqa: E402
@@ -52,7 +54,7 @@ def cuda():
 
 
 LIBS = (HASH_LIB, SCAN_LIB, FACTORS_LIBRARY, CHAIN_LIB, FUSED_LIBRARY,
-        DISTANCE_LIBRARY)
+        DISTANCE_LIBRARY, LISTS_LIB)
 
 
 def test_kernels_build_for_sm90a(cuda):

@@ -112,7 +112,7 @@ def test_a_scan_batch_records_the_seven_spans(how, service, ws):
         assert all(k.device_start is None for k in kids)
         rb = kids[-1]
         first = sum(sizes[:i])
-        assert rb.counts == {"reads": 6, "candidates": sum(
+        assert rb.counts == {"reads": 1, "candidates": sum(
             r.candidates.size for r in res[first:first + sizes[i]])}
         assert rb.host_start <= rb.marks["first_read"] <= rb.host_end
         assert all(k.counts is None for k in kids[:-1])
@@ -184,7 +184,7 @@ def test_stats_summarise_the_last_session(service, ws, monkeypatch):
     assert set(got) == set(SPANS)
     assert all(got[n]["count"] == 3 for n in SPANS)
     assert all(got[n]["device_wall_s"] is None for n in SPANS)
-    assert got["index.readback"]["counts"]["reads"] == 18
+    assert got["index.readback"]["counts"]["reads"] == 3
     mine = [s for s in sess.spans if s.scope == id(service)]
     assert len(mine) == 3 * len(SPANS)
     roots = [s for s in mine if s.parent is None]
