@@ -227,6 +227,11 @@ SOAK_BATCHES, SOAK_HORIZON = 24, 75
 # the sharded phase: rows inserted into the LSM index's delta (past
 # lsm_delta_fused_rows, so the delta scans on the kernel route)
 SHARD_INSERTS = 5_000
+# the cutoff exchange's kernels at the four-card cell's shapes on one card:
+# a card's rows (the last shard 16 short), its micro-batch and depth; and
+# the co-located index held to the one-card index, at its depth
+SELECT_ROWS, SELECT_SHARDS, SELECT_B, SELECT_L = 19_840_505, 4, 10, 468_947
+SELECT_INDEX_ROWS, SELECT_INDEX_L = 2_060_003, 11_829
 # the LM serving path (qwen3-1.7b at full width and depth): batch,
 # prompt and generated tokens; the fp32 gates' sequence (prefilled half
 # way), and the depth and length of the card-vs-CPU gate
@@ -643,6 +648,130 @@ def sharded_phase(args, index, lsm, router, ws, wq, x_extra, deletes,
     print(f"launches on the sharded path (index and service runs): "
           f"{shard_launches}")
     return shard_launches
+
+
+def shard_select_phase(dev, rows: int | None = None,
+                       index_rows: int | None = None) -> dict:
+    """The cutoff exchange's kernels (``kernels.shard_select``,
+    csrc/shard_select.cu) at the four-card cell's shapes on one card:
+    SELECT_SHARDS shards of ``rows`` 20-bit codes (the last 16 rows
+    short), SELECT_B queries, top-SELECT_L; each shard's histogram and
+    select against their plain versions, equal, and the kernels' device
+    ms beside ``ops.shard_select_bound``.  Then an index fit from
+    ``index_rows`` rows as co-located shards (``fit_sharded``) answers as
+    the one-card index over the same rows, bit for bit, and one of its
+    micro-batches launches SELECT_SHARDS histogram passes, twice that of
+    the offsets and select, one list kernel a shard and no distance
+    kernel.  Returns the phase's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core.indexer import IndexConfig
+    from repro_torch.core.search import cutoff_exchange
+    from repro_torch.kernels import _build, candidates, hamming, ops
+    from repro_torch.kernels import shard_select as ss
+    from repro_torch.serving.multi_table import MultiTableIndex
+    from repro_torch.utils.mesh import make_mesh
+    if dev.type == "cuda" and dev.index is None:   # the mesh's devices
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rows = SELECT_ROWS if rows is None else rows
+    index_rows = SELECT_INDEX_ROWS if index_rows is None else index_rows
+    g = torch.Generator(device=dev).manual_seed(31)
+    codes = [torch.randint(0, 1 << BITS, (1, rows, 1), generator=g,
+                           device=dev, dtype=torch.int32)
+             for _ in range(SELECT_SHARDS)]
+    q = torch.randint(0, 1 << BITS, (1, SELECT_B, 1), generator=g,
+                      device=dev, dtype=torch.int32)
+    valid = [rows] * (SELECT_SHARDS - 1) + [rows - 16]
+    h0, s0 = ss.shard_histogram.launches, ss.shard_select.launches
+    hists, blocks = [], []
+    for c, v in zip(codes, valid):
+        h, blk = ss.shard_histogram(c, q, v)
+        hp, blkp = ss.shard_histogram_plain(c, q, v)
+        check(torch.equal(h, hp) and torch.equal(blk, blkp),
+              f"shard histogram over {v} rows: kernel = plain")
+        hists.append(h)
+        blocks.append(blk)
+    top = min(SELECT_L, sum(valid))
+    cut, take, counts = cutoff_exchange(torch.stack(hists), top)
+    check(bool((counts.sum(0) == top).all()),
+          "the shards' shares make the top-l")
+    widths = counts.amax(dim=(1, 2)).tolist()
+    for s, (c, v) in enumerate(zip(codes, valid)):
+        got = ss.shard_select(c, q, v, blocks[s], cut, take[s].contiguous(),
+                              widths[s])
+        want = ss.shard_select_plain(c, q, v, blocks[s], cut, take[s],
+                                     widths[s])
+        check(torch.equal(got, want),
+              f"shard {s} select ({widths[s]} wide): kernel = plain")
+    check(ss.shard_histogram.launches == h0 + SELECT_SHARDS
+          and ss.shard_select.launches == s0 + 2 * SELECT_SHARDS,
+          "one histogram and two select launches a shard")
+    selected = int(counts[0].sum())
+    c, v = codes[0], valid[0]
+    hist_ms = profiled_ms(torch, lambda: ss.shard_histogram(c, q, v), 20,
+                          "shard_hist_kernel")
+    tk = take[0].contiguous()
+    sel_call = (lambda: ss.shard_select(c, q, v, blocks[0], cut, tk,
+                                        widths[0]))
+    _, kernels = device_profile(
+        torch, lambda: [sel_call() for _ in range(20)],
+        ("shard_offsets_kernel", "shard_select_kernel"))
+    offs_ms = kernel_device_ms(kernels, "shard_offsets_kernel")
+    sel_ms = kernel_device_ms(kernels, "shard_select_kernel")
+    plain_ms = cuda_ms(torch, lambda: ss.shard_select_plain(
+        c, q, v, blocks[0], cut, tk, widths[0]), 5)
+    bound = ops.shard_select_bound(v, 1, SELECT_B, selected)
+    out = {"rows": rows, "b": SELECT_B, "l": SELECT_L,
+           "selected_shard0": selected, "hist_ms": hist_ms,
+           "offsets_ms": offs_ms, "select_ms": sel_ms,
+           "plain_select_ms": plain_ms, "bound_ms": bound.ms,
+           "bound_by": bound.by}
+    print("shard select kernels: " + json.dumps(out), flush=True)
+    for lib_line in ptxas_lines(_build.build_log(ss.LIBRARY), "shard_"):
+        print(f"  ptxas {lib_line}")
+    del codes, blocks, hists
+    torch.cuda.empty_cache()
+
+    # the index: co-located shards against the one-card index
+    x = torch.randn((index_rows, D_GIST + 1), generator=g, device=dev)
+    w = torch.randn((SELECT_B, D_GIST + 1), generator=g,
+                    device=dev).cpu().numpy()
+    cfg = IndexConfig(method="bh", bits=BITS, tables=1, seed=11)
+    mesh = make_mesh(SELECT_SHARDS, "data", [dev] * SELECT_SHARDS)
+    per = -(-index_rows // SELECT_SHARDS)
+    parts = [torch.zeros((per, D_GIST + 1), device=dev)
+             for _ in range(SELECT_SHARDS)]
+    for s in range(SELECT_SHARDS):
+        part = x[s * per:(s + 1) * per]
+        parts[s][:part.shape[0]] = part
+    single = MultiTableIndex(cfg, device=dev).fit(x)
+    sharded = MultiTableIndex(cfg, device=dev).fit_sharded(
+        parts, mesh, n=index_rows)
+    mask = np.random.default_rng(3).random(index_rows) < 0.7
+    for l, topk, m in ((SELECT_INDEX_L, 2, None), (1000, 3, mask),
+                       (per + 5, 2, None)):
+        a = single.query_scan_batch(w, l=l, topk=topk, mask=m)
+        counts0 = (ss.shard_histogram.launches, ss.shard_select.launches,
+                   hamming.hamming_distance_batch.launches,
+                   candidates.candidate_lists.launches)
+        b = sharded.query_scan_batch(w, l=l, topk=topk, mask=m)
+        launches = [after - before for after, before in zip(
+            (ss.shard_histogram.launches, ss.shard_select.launches,
+             hamming.hamming_distance_batch.launches,
+             candidates.candidate_lists.launches), counts0)]
+        diff = batch_diff([b], [a])
+        check(not any(diff.values()),
+              f"co-located shards, l {l}, topk {topk}: answers equal the "
+              f"one-card index's (differ: {diff})")
+        check(launches == [SELECT_SHARDS, 2 * SELECT_SHARDS, 0,
+                           SELECT_SHARDS],
+              f"a sharded micro-batch's launches (histogram, offsets + "
+              f"select, distances, lists): {launches}")
+    out["index_rows"] = index_rows
+    out["index_launches"] = launches
+    print(f"co-located index over {index_rows} rows: answers equal the "
+          f"one-card index's; launches a micro-batch {launches}", flush=True)
+    return out
 
 
 def _sync(torch, dev) -> None:
@@ -1646,7 +1775,7 @@ def contracts_phase(build_mod) -> dict:
     report's."""
     import re
     from repro_torch.kernels import bilinear_hash, candidates, contracts
-    from repro_torch.kernels import hamming, lbh_grad
+    from repro_torch.kernels import hamming, lbh_grad, shard_select
     findings = contracts.run()
     print(f"contract sweep: {len(contracts.sweep())} cases, findings "
           f"{findings}")
@@ -1699,7 +1828,10 @@ def contracts_phase(build_mod) -> dict:
                       (hamming.FUSED_LIBRARY, "topk_fused_kernel"),
                       (hamming.DISTANCE_LIBRARY, "distance_kernel"),
                       (hamming.DISTANCE_LIBRARY, "distance_batch_kernel"),
-                      (candidates.LIBRARY, "cand_lists_kernel")):
+                      (candidates.LIBRARY, "cand_lists_kernel"),
+                      (shard_select.LIBRARY, "shard_hist_kernel"),
+                      (shard_select.LIBRARY, "shard_offsets_kernel"),
+                      (shard_select.LIBRARY, "shard_select_kernel")):
         lines = [ln for ln in ptxas_lines(build_mod.build_log(lib), frag)
                  if "registers" in ln]
         got = sorted({int(m.group(1)) if (m := re.search(
@@ -4102,6 +4234,11 @@ def main() -> int:
         BASE_DELETES, zero_counts, read_counts, records, smi)
     router.close()
     del index, lsm, router
+    torch.cuda.empty_cache()
+
+    # -- 18b. the cutoff exchange's kernels at the four-card cell's shapes --
+    phase("18b shard select kernels")
+    records["shard_select"] = shard_select_phase(dev)
     torch.cuda.empty_cache()
 
     # -- 19. the LM serving path: qwen3-1.7b at full width and depth -------

@@ -368,6 +368,40 @@ def hamming_topk_grouped_sharded(codes, queries, l: int, mesh,
     return lex_smallest(all_d, all_i, l)
 
 
+# -- the cutoff exchange over row-sharded features ---------------------------
+#
+# An index whose feature rows are sharded too (``MultiTableIndex.
+# fit_sharded``) cannot gather every shard's top-l to one card and send the
+# winners back for the re-rank.  Each shard instead sends the histogram of
+# its rows' distances (32·W + 1 bins a query; ``kernels.shard_select``);
+# their sum gives each query's cutoff distance D and how many rows at D
+# the global top-l takes.  Shards hold contiguous row ranges and ties go
+# to the lowest id, so shard s takes all its rows below D and its first
+# max(0, r - sum_{t<s} count_t(D)) rows at D: the single-device top-l
+# set, split by shard.
+
+
+def cutoff_exchange(hists, t: int):
+    """The shards' share of each (group, query)'s top-t by (distance, id),
+    from their histograms hists (S, G, B, bins) int64, shard s holding the
+    s-th contiguous range of rows: (cut (G, B) int32, the distance D the
+    top-t reaches; take (S, G, B) int64, the rows at D shard s gives, its
+    lowest ones; counts (S, G, B) int64, the rows shard s gives in all).
+    Needs 1 <= t <= the rows the histograms count."""
+    total = hists.sum(0)
+    cum = torch.cumsum(total, -1)
+    cut = torch.clamp((cum < t).sum(-1, keepdim=True),
+                      max=hists.shape[-1] - 1)
+    need = t - (cum.gather(-1, cut) - total.gather(-1, cut))
+    at = cut.expand(hists.shape[:-1] + (1,))
+    eq = hists.gather(-1, at)
+    take = torch.clamp(torch.minimum(need - (torch.cumsum(eq, 0) - eq), eq),
+                       min=0)
+    below = torch.cumsum(hists, -1).gather(-1, at) - eq
+    return (cut[..., 0].to(torch.int32), take[..., 0],
+            (below + take)[..., 0])
+
+
 def _segmented_rows(base_x, delta_x, split: int, rows):
     """x[rows] over a row space stored as two segments: rows < split from
     base_x, rows >= split from delta_x at row - split.  Both may carry

@@ -1,4 +1,4 @@
-"""Launch contracts of the port's nine CUDA kernels, checked without a
+"""Launch contracts of the port's CUDA kernels, checked without a
 card: the counterpart of the JAX package's Pallas contract checker
 (src/repro/lint/kernel_contracts.py).
 
@@ -37,7 +37,7 @@ import functools
 from collections import Counter
 
 from repro_torch.kernels import (_build, bilinear_hash, candidates, hamming,
-                                  lbh_grad)
+                                  lbh_grad, shard_select)
 
 MAX_SMEM = 232448            # bytes a block may opt into on sm_90
 MAX_GRID_X = 2 ** 31 - 1
@@ -351,13 +351,47 @@ def launch_cand_lists(b: int, c: int) -> Launch:
                   static_smem=4 * (LISTS_THREADS // 32))
 
 
+# -- one shard's select (csrc/shard_select.cu) -------------------------------
+
+SHARD_THREADS = 256
+SHARD_OFFSET_THREADS = 1024
+SHARD_BLOCK_ROWS = 4096
+SHARD_SMEM = 48 * 1024           # a chunk of queries with its bins
+# the offsets' static shared memory: a warp's two counts each, then one
+# int, which ptxas places at the next 16 bytes
+SHARD_OFFSET_SMEM = 8 * (SHARD_OFFSET_THREADS // 32) + 16
+
+
+def launch_shard_select(g: int, rows: int, n_valid: int, w: int, nq: int,
+                        width: int) -> list:
+    """The histogram pass, then the offsets and the select: a block a
+    (row block, group, query chunk), the offsets one a (group, query)."""
+    bins = 32 * w + 1
+    qb = min(nq, SHARD_SMEM // (4 * (w + bins))) if nq >= 1 else 0
+    if (g < 1 or nq < 1 or w < 1 or qb < 1 or width < 1
+            or not 1 <= n_valid <= rows):
+        raise ValueError(f"need g, nq, w, width >= 1, 1 <= n_valid <= rows "
+                         f"and a chunk of queries, got {g}, {nq}, {w}, "
+                         f"{width}, {n_valid}, {rows}")
+    grid = (_cdiv(n_valid, SHARD_BLOCK_ROWS), g, _cdiv(nq, qb))
+    return [Launch("shard_hist_kernel", grid, SHARD_THREADS,
+                   4 * qb * (w + bins)),
+            Launch("shard_offsets_kernel", (g * nq, 1, 1),
+                   SHARD_OFFSET_THREADS, 0, static_smem=SHARD_OFFSET_SMEM),
+            Launch("shard_select_kernel", grid, SHARD_THREADS, 4 * qb * w,
+                   static_smem=2 * 8 * (SHARD_THREADS // 32))]
+
+
 # static shared memory of each kernel's ptxas report (bytes)
 STATIC_SMEM = {"bilinear_hash_kernel": 0, "bh_seeded_product_kernel": 0,
                "bh_seeded_generate_kernel": 0, "lbh_chain_kernel":
                2 * LBH_COLS * 4, "topk_hist_kernel": 0,
                "topk_hist_dma_kernel": 0, "topk_fused_kernel": 0,
                "distance_kernel": 0, "distance_batch_kernel": 0,
-               "cand_lists_kernel": 4 * (LISTS_THREADS // 32)}
+               "cand_lists_kernel": 4 * (LISTS_THREADS // 32),
+               "shard_hist_kernel": 0,
+               "shard_offsets_kernel": SHARD_OFFSET_SMEM,
+               "shard_select_kernel": 2 * 8 * (SHARD_THREADS // 32)}
 
 
 # -- checks --------------------------------------------------------------------
@@ -393,6 +427,7 @@ _RECKON = {
     "bilinear_hash": launch_hash, "bilinear_hash_seeded": launch_hash,
     "lbh_chain": launch_lbh_chain,
     "cand_lists": launch_cand_lists,
+    "shard_select": launch_shard_select,
 }
 
 
@@ -435,6 +470,13 @@ def other_cases():
         yield Case("lbh_chain", f"m{m}", (m,))
     for b, c in ((1, 1), (10, 6264), (20, 201), (32, 65536), (4096, 33)):
         yield Case("cand_lists", f"b{b}-c{c}", (b, c))
+    for g, rows, n_valid, w, nq, width in (
+            (1, 19_840_505, 19_840_505, 1, 10, 120_000),
+            (1, 19_840_505, 19_840_489, 1, 10, 1),
+            (4, 300_000, 1, 1, 32, 5), (2, 8191, 8190, 13, 7, 9000),
+            (1, 5000, 4097, 32, 100, 4097)):
+        yield Case("shard_select", f"g{g}-r{rows}-v{n_valid}-w{w}-b{nq}",
+                   (g, rows, n_valid, w, nq, width))
 
 
 def sweep() -> list[tuple[Case, object]]:
@@ -482,6 +524,7 @@ _LIBRARY_SIGNATURES = {
     bilinear_hash.FACTORS_LIBRARY: bilinear_hash._FACTORS_SIGNATURES,
     lbh_grad.LIBRARY: lbh_grad._SIGNATURES,
     candidates.LIBRARY: candidates._SIGNATURES,
+    shard_select.LIBRARY: shard_select._SIGNATURES,
 }
 
 
@@ -504,7 +547,9 @@ def plan_export(case: Case) -> tuple[str, str, tuple]:
             "bilinear_hash_seeded": (bilinear_hash.LIBRARY, "bh_seeded_plan",
                                      a),
             "lbh_chain": (lbh_grad.LIBRARY, "lbh_chain_plan", a),
-            "cand_lists": (candidates.LIBRARY, "cand_lists_plan", a)}[k]
+            "cand_lists": (candidates.LIBRARY, "cand_lists_plan", a),
+            "shard_select": (shard_select.LIBRARY, "shard_select_plan",
+                             a)}[k]
 
 
 def library_plan(case: Case):
@@ -513,12 +558,12 @@ def library_plan(case: Case):
     dynamic shared memory, blocks per SM or 0), or the export's error
     code where the library refuses the case."""
     library, export, args = plan_export(case)
-    out = (ctypes.c_int64 * 12)()
+    out = (ctypes.c_int64 * 18)()
     rc = getattr(_build.load(library, _LIBRARY_SIGNATURES[library]),
                  export)(*args, out)
     if rc:
         return rc
-    n = 2 if case.kernel == "bilinear_hash_seeded" else 1
+    n = {"bilinear_hash_seeded": 2, "shard_select": 3}.get(case.kernel, 1)
     return [(tuple(out[6 * i:6 * i + 3]), out[6 * i + 3], out[6 * i + 4],
              out[6 * i + 5]) for i in range(n)]
 

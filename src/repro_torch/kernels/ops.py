@@ -18,6 +18,7 @@ from repro_torch.kernels import bilinear_hash as _bh
 from repro_torch.kernels import candidates as _cl
 from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import lbh_grad as _lbh
+from repro_torch.kernels import shard_select as _ss
 from repro_torch.kernels.bilinear_hash import \
     bilinear_hash_seeded as _bilinear_hash_seeded
 from repro_torch.kernels.hamming import (cand_encoding, hamming_distance,
@@ -214,6 +215,20 @@ def candidate_lists_bound(b: int, c: int, kept: int) -> Bound:
                   h100.FP32_FLOP_S)
 
 
+def shard_select_bound(n: int, w: int, b: int, selected: int, *,
+                       g: int = 1, sms: int = h100.SMS,
+                       clock_hz: float = h100.MAX_SM_CLOCK_HZ) -> Bound:
+    """One shard's histogram and select (``kernels.shard_select``): n
+    valid rows of g groups of W-word codes against B queries each, of
+    which ``selected`` rows (over every group and query) are its share of
+    the top-l.  Bytes: codes and queries once (g (n + B) W 4), the
+    selected rows' int32 written once (selected 4).  Operations: one
+    popcount per row, query and word (g n B W).  The histograms crossing
+    between the passes are a few KB and are left out."""
+    return _bound(g * (n + b) * w * 4 + selected * 4, g * n * b * w,
+                  h100.popc_s(sms, clock_hz))
+
+
 def load_libraries() -> None:
     """Build every kernel library not built yet (one nvcc per source, all
     started together) and load it, so that no first use falls inside a
@@ -221,7 +236,7 @@ def load_libraries() -> None:
     libs = {_bh.LIBRARY: _bh._SIGNATURES,
             _bh.FACTORS_LIBRARY: _bh._FACTORS_SIGNATURES,
             _lbh.LIBRARY: _lbh._SIGNATURES, _cl.LIBRARY: _cl._SIGNATURES,
-            **_hm._SIGNATURES}
+            _ss.LIBRARY: _ss._SIGNATURES, **_hm._SIGNATURES}
     _build.build(list(libs))
     for name, signatures in libs.items():
         _build.load(name, signatures)

@@ -67,6 +67,18 @@ def hash_database_all(families, x) -> torch.Tensor:
     return _database_codes(families, as_float_tensor(x, families[0].device))
 
 
+def hash_database_here(families, x: torch.Tensor) -> torch.Tensor:
+    """Database-side codes for all tables of rows x, on x's own device:
+    (L, n, W) int32.  Seeded BH families only, whose factors come from
+    their seeds wherever the rows are; other families raise
+    NotImplementedError."""
+    if not _seed_stackable(families):
+        raise NotImplementedError(
+            "hashing rows on their own device needs seeded BH families "
+            "(method 'bh', seeded_projections=True) of one shape")
+    return _database_codes(families, x)
+
+
 def union_candidates(per_table: list[np.ndarray]) -> np.ndarray:
     """Union of per-table candidate id lists, first occurrence order."""
     arrs = [a for a in per_table if a.size]

@@ -16,7 +16,12 @@ its families from jax.random keys, which torch cannot reproduce; to serve
 a JAX-built index, carry its families and state across with
 ``repro_torch.interop``.  The scan path also runs row-sharded over a
 ``utils.mesh.Mesh`` (``mesh=``, ``core.search.hamming_topk_grouped_sharded``)
-with answers identical to the single-device scan.
+with answers identical to the single-device scan.  An index fit from row
+shards (``fit_sharded``) keeps its feature rows, codes and id maps on the
+mesh's devices, no whole copy anywhere, and answers through the scan path
+by the cutoff exchange (``core.search.cutoff_exchange``), each shard
+re-ranking its own candidates; it takes no mutation and has no probe
+path.
 ``serving.lsm.LSMMultiTableIndex`` overrides the build,
 mutation, lookup, re-rank and scan methods here for streaming ingest.
 """
@@ -29,13 +34,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.indexer import IndexConfig, QueryResult, make_family
-from repro_torch.core.search import (DIST_SENTINEL,
+from repro_torch.core.search import (DIST_SENTINEL, cutoff_exchange,
                                      hamming_topk_grouped_sharded,
                                      margin_batch, margin_rerank_batch,
                                      shard_rows)
 from repro_torch.core.tables import SingleHashTable, keys_of
 from repro_torch.kernels import ops
 from repro_torch.kernels.candidates import candidate_lists
+from repro_torch.kernels.shard_select import shard_histogram, shard_select
 from repro_torch.serving import batch_query as bq
 from repro_torch.utils import trace
 from repro_torch.utils.bits import from_numpy_u32, to_numpy_u32
@@ -86,6 +92,47 @@ def _read_back(device: torch.device, *ts: torch.Tensor) -> list[np.ndarray]:
     return [h.numpy() for h in host]
 
 
+def _cross(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """t on ``device``, copied without blocking the host where it is
+    elsewhere; the bytes that cross count into the open span's
+    ``exchange_bytes``."""
+    if t.device == device:
+        return t
+    trace.add("exchange_bytes", t.numel() * t.element_size())
+    return t.to(device, non_blocking=True)
+
+
+def _scan_answers(margins: np.ndarray, ids: np.ndarray, hits: np.ndarray,
+                  lists: np.ndarray, c: int, topk: int) -> BatchQueryResult:
+    """The host's part of a scan path's read-back: the answers from the
+    least margins (B, k) and the stable ids beside them (only a finite
+    margin names an answer), padded to topk where k < topk (topk > L·l:
+    pad, not clip); each query's candidate list a view of lists (B, c + 2)
+    (its ids, then the count, then whether any slot was valid).  Counts
+    ``candidates`` into the open span."""
+    ids = np.where(np.isfinite(margins), ids, -1)
+    if margins.shape[1] < topk:
+        padw = ((0, 0), (0, topk - margins.shape[1]))
+        margins = np.pad(margins, padw, constant_values=np.inf)
+        ids = np.pad(ids, padw, constant_values=-1)
+    counts = lists[:, c].tolist()
+    trace.add("candidates", sum(counts))
+    return BatchQueryResult(
+        ids[:, 0], margins[:, 0], lists[:, c + 1] != 0,
+        [lists[i, :k] for i, k in enumerate(counts)], 0.0, 0.0, hits,
+        ids_topk=ids if topk > 1 else None,
+        margins_topk=margins if topk > 1 else None)
+
+
+def _shard_mask(mask_rows: np.ndarray, start: int, valid: int, rows: int,
+                device) -> torch.Tensor:
+    """A shard's (rows,) slice of a row-space mask, False past its valid
+    rows, on its device."""
+    part = np.zeros(rows, dtype=bool)
+    part[:valid] = mask_rows[start:start + valid]
+    return torch.from_numpy(part).to(device)
+
+
 class MultiTableIndex:
     """Union-of-candidates index over L compact bilinear-hash tables."""
 
@@ -120,6 +167,13 @@ class MultiTableIndex:
         self._live_rows: np.ndarray | None = None
         self._live_rows_dev = None
         self._ids_dev = None    # stable ids of the live rows, int64
+        # fit_sharded: the rows (R, d), codes (G, R, W) and stable ids (R,)
+        # of each shard on its device, the mesh and its axis
+        self._x_parts = None
+        self._codes_parts = None
+        self._ids_parts = None
+        self.mesh = None
+        self.shard_axis = None
 
     # -- build ---------------------------------------------------------------
 
@@ -156,6 +210,8 @@ class MultiTableIndex:
         if len(families) != self.num_tables or len(codes) != self.num_tables:
             raise ValueError(f"expected {self.num_tables} families and code "
                              f"tables, got {len(families)} and {len(codes)}")
+        self._x_parts = self._codes_parts = self._ids_parts = None
+        self.mesh = self.shard_axis = None
         self.families = list(families)
         self.codes = [np.ascontiguousarray(c, dtype=np.uint32) for c in codes]
         self.x_np = np.require(x, dtype=np.float32, requirements=["C", "W"])
@@ -172,6 +228,83 @@ class MultiTableIndex:
         self.version += 1
         return self
 
+    def fit_sharded(self, parts, mesh, n: int | None = None,
+                    axis: str = "data") -> "MultiTableIndex":
+        """Build the index over rows that already sit as shards on a mesh's
+        devices, keeping no whole copy of them on any device and none on
+        the host.
+
+        parts: one (R, d) float32 tensor a shard, on ``mesh.devices[s]`` in
+        shard order: shard s holds rows [s R, (s + 1) R), the contiguous
+        range ``core.search.shard_rows`` gives it; stable id = row.  n: the
+        true row count (default S R); the rows from n on are padding (the
+        tail of the last shards) and never candidates.  Each shard's rows
+        are hashed on their own device by the config's families, which
+        must be seeded BH, and its codes and stable ids stay there with its
+        rows.
+
+        The index answers through the scan path alone
+        (``query_scan_batch`` with ``mesh`` None or this mesh, or a
+        ``HashQueryService`` in scan mode): each shard selects its share of
+        every table's top-l by the cutoff exchange and re-ranks its own
+        candidates; the answers, candidate lists and hits equal the
+        single-device index's over the same rows.  Mutations, the probe
+        path, ``scan_table_topk`` and ``candidate_margins`` raise
+        NotImplementedError."""
+        t0 = time.perf_counter()
+        shards = shard_count(mesh, axis)
+        parts = tuple(parts)
+        if len(parts) != shards:
+            raise ValueError(f"{len(parts)} row shards for a mesh axis of "
+                             f"{shards}")
+        rows, d = parts[0].shape if parts[0].dim() == 2 else (0, 0)
+        for part, dev in zip(parts, mesh.devices):
+            if (part.dim() != 2 or tuple(part.shape) != (rows, d)
+                    or part.dtype != torch.float32 or part.device != dev):
+                raise ValueError(
+                    f"each shard must be a ({rows}, {d}) float32 tensor on "
+                    f"its mesh device; got {part.dtype} "
+                    f"{tuple(part.shape)} on {part.device} for {dev}")
+        n = shards * rows if n is None else int(n)
+        if not 1 <= n <= shards * rows:
+            raise ValueError(f"n = {n} rows do not fit {shards} shards of "
+                             f"{rows}")
+        if self.config.method != "bh" or not self.config.seeded_projections:
+            raise NotImplementedError(
+                "fit_sharded hashes each shard on its own device and needs "
+                "seeded BH families (method 'bh', seeded_projections=True)")
+        meta = torch.empty((0, d), dtype=torch.float32, device=self.device)
+        families = [make_family(self.config, meta, t)
+                    for t in range(self.num_tables)]
+        codes = tuple(bq.hash_database_here(families, part).contiguous()
+                      for part in parts)
+        self._invalidate()
+        self.families = list(families)
+        self.x_np = None
+        self.codes, self.tables = [], []
+        self.active = np.ones(n, dtype=bool)
+        self.ids_np = np.arange(n, dtype=np.int64)
+        self._row_of = self.ids_np.copy()
+        self._next_id = n
+        self._x_parts, self._codes_parts = parts, codes
+        self._ids_parts = tuple(
+            torch.arange(s * rows, (s + 1) * rows, dtype=torch.int64,
+                         device=dev) for s, dev in enumerate(mesh.devices))
+        self.mesh, self.shard_axis = mesh, axis
+        self.version += 1
+        self.fit_s = time.perf_counter() - t0
+        return self
+
+    def _whole_rows(self, op: str) -> None:
+        """Raise for what an index fit from row shards cannot do."""
+        if self._x_parts is not None:
+            raise NotImplementedError(
+                f"MultiTableIndex.{op} on an index fit from row shards "
+                f"(fit_sharded): its rows stay on the mesh's devices and it "
+                f"answers through the scan path alone; insert, delete, "
+                f"compact, the probe path, scan_table_topk and "
+                f"candidate_margins need an index fit on whole rows (fit)")
+
     def _invalidate(self, keep_x: bool = False) -> None:
         """Drop the device-resident state derived from rows/codes.
         keep_x: the feature rows are unchanged (tombstone-only delete)."""
@@ -183,7 +316,7 @@ class MultiTableIndex:
         self._ids_dev = None
 
     def _require_fit(self, op: str) -> None:
-        if self.x_np is None:
+        if self.x_np is None and self._x_parts is None:
             raise RuntimeError(
                 f"MultiTableIndex.{op} before fit(): build the index with "
                 f"fit(x) before mutating or querying it")
@@ -195,6 +328,7 @@ class MultiTableIndex:
 
     @property
     def x(self) -> torch.Tensor:
+        self._whole_rows("x")
         if self._x_dev is None:
             self._x_dev = torch.from_numpy(self.x_np).to(self.device)
             self.device_uploads += 1
@@ -235,6 +369,7 @@ class MultiTableIndex:
     def insert(self, x_new) -> np.ndarray:
         """Append rows to every table; returns the assigned stable ids."""
         self._require_fit("insert")
+        self._whole_rows("insert")
         x_new = np.atleast_2d(np.asarray(x_new, np.float32))
         if x_new.shape[0] == 0:
             return np.empty((0,), dtype=np.int64)
@@ -261,6 +396,7 @@ class MultiTableIndex:
         delete is a no-op and does not bump ``version``.  Past
         ``config.compact_threshold`` dead fraction the index compacts."""
         self._require_fit("delete")
+        self._whole_rows("delete")
         ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
         if ids.size == 0:
             return
@@ -283,6 +419,7 @@ class MultiTableIndex:
         """Physically drop tombstoned rows and refresh the stable-id remap.
         Returns the surviving stable ids; no-op when nothing is dead."""
         self._require_fit("compact")
+        self._whole_rows("compact")
         if self.active.all():
             return self.ids_np.copy()
         live = np.flatnonzero(self.active)
@@ -310,6 +447,7 @@ class MultiTableIndex:
         (per-query unioned candidate lists IN ROW SPACE, per-table hit
         counts, elapsed seconds)."""
         self._require_fit("lookup_batch")
+        self._whole_rows("lookup_batch")
         cfg = self.config
         w = np.atleast_2d(np.asarray(w, np.float32))
         t0 = time.perf_counter()
@@ -331,11 +469,13 @@ class MultiTableIndex:
     def rerank_rows(self, w, cands: list[np.ndarray], l: int = 1,
                     mask_rows=None):
         """Exact-margin re-rank of B ragged ROW-space candidate lists."""
+        self._whole_rows("rerank_rows")
         return bq.batched_rerank(self.x, w, cands, l, mask_rows)
 
     def query_batch(self, w, mask=None, l: int = 1) -> BatchQueryResult:
         """Answer B hyperplane queries through the probe tables.  mask:
         optional bool mask over stable-id space restricting answers."""
+        self._whole_rows("query_batch")
         cands, hits, lookup_s = self.lookup_batch(w)
         w = np.atleast_2d(np.asarray(w, np.float32))
         t0 = time.perf_counter()
@@ -423,6 +563,13 @@ class MultiTableIndex:
         if mesh is not None:
             shard_count(mesh, shard_axis)
         self._require_fit("query_scan_batch")
+        if self._x_parts is not None:
+            if mesh is not None and (mesh, shard_axis) != (self.mesh,
+                                                           self.shard_axis):
+                raise ValueError(f"this index's rows are sharded over "
+                                 f"{self.mesh} along {self.shard_axis!r}, "
+                                 f"not {mesh} along {shard_axis!r}")
+            return self._scan_sharded_rows(w, l, topk, mask)
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         if not self.active.any():
@@ -453,6 +600,7 @@ class MultiTableIndex:
         the spans ``index.union``, ``index.rerank`` and ``index.readback``
         (counts ``reads``, one per blocking read, and ``candidates``, the
         unique candidates of the batch's queries; mark ``first_read``)."""
+        self._whole_rows("answer_from_scan")
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         if self._codes_dev is None:
@@ -484,22 +632,134 @@ class MultiTableIndex:
         with trace.span("index.readback", entry=rerank):
             margins, top, hits, lists = _read_back(self.device, margins, top,
                                                    hits, lists)
-            # top holds live rows, the padding's too: only finite margins
-            # name answers
-            top = np.where(np.isfinite(margins), self.ids_np[top], -1)
-            if margins.shape[1] < topk:   # topk > L*l: pad, not clip
-                padw = ((0, 0), (0, topk - margins.shape[1]))
-                margins = np.pad(margins, padw, constant_values=np.inf)
-                top = np.pad(top, padw, constant_values=-1)
-            c = flat.shape[1]
-            counts = lists[:, c].tolist()
-            cands = [lists[i, :k] for i, k in enumerate(counts)]
-            trace.add("candidates", sum(counts))
-        return BatchQueryResult(
-            top[:, 0], margins[:, 0], lists[:, c + 1] != 0, cands,
-            0.0, 0.0, hits,
-            ids_topk=top if topk > 1 else None,
-            margins_topk=margins if topk > 1 else None)
+            # top holds live rows, the padding's too
+            return _scan_answers(margins, self.ids_np[top], hits, lists,
+                                 flat.shape[1], topk)
+
+    def _scan_sharded_rows(self, w, l: int, topk: int, mask
+                           ) -> BatchQueryResult:
+        """``query_scan_batch`` of an index fit from row shards: the cutoff
+        exchange, then each shard's re-rank of its own candidates.
+
+        On the index's device the queries are hashed and sent to the
+        shards (span ``index.exchange``); each shard's distances and their
+        histogram (``index.shard_select`` on its device) come back, the
+        cutoffs and each shard's share go out, and the index's device
+        reads the shards' widths (``index.exchange``: one blocking read);
+        each shard selects its rows in ascending order and unites its
+        tables' (``index.shard_select``), re-ranks them and builds their
+        candidate lists (``index.shard_rerank``); the shards' B least
+        margins and their lists cross to the index's device
+        (``index.exchange``), where the lists are laid end to end in shard
+        order, which is stable-id order (``index.union``), the least
+        margins merged, ties to the lowest id (``index.rerank``), and the
+        answers read back at once (``index.readback``).  The exchange spans
+        count ``exchange_bytes``, what crosses between two devices; the
+        second shard-select spans count ``candidates``, the rows a shard
+        selected over its tables."""
+        w = np.atleast_2d(np.asarray(w, np.float32))
+        b = w.shape[0]
+        dev0, devs = self.device, self.mesh.devices
+        rows, n = self._x_parts[0].shape[0], self.ids_np.shape[0]
+        g = self.num_tables
+        c = g * l               # a query's union slots, as on one device
+        k = min(topk, c)
+        valid_rows = [min(max(n - s * rows, 0), rows)
+                      for s in range(len(devs))]
+        mask_rows = self.mask_to_rows(mask)
+        with trace.span("index.hash"):
+            qcodes = bq.hash_queries_all(self.families, w)
+            w_dev = bq.as_float_tensor(w, dev0)
+        with trace.span("index.exchange", entry=True, exit=True,
+                        device=dev0):
+            q_parts = [_cross(qcodes.contiguous(), dev) for dev in devs]
+            w_parts = [_cross(w_dev, dev) for dev in devs]
+        blocks, hists = [], []
+        for s, dev in enumerate(devs):
+            with trace.span("index.shard_select", entry=True, exit=True,
+                            device=dev):
+                h, blk = shard_histogram(self._codes_parts[s], q_parts[s],
+                                         valid_rows[s])
+                hists.append(h)
+                blocks.append(blk)
+        with trace.span("index.exchange", entry=True, exit=True,
+                        device=dev0):
+            cut, take, counts = cutoff_exchange(
+                torch.stack([_cross(h, dev0) for h in hists]), min(l, n))
+            cuts = [_cross(cut, dev).contiguous() for dev in devs]
+            takes = [_cross(take[s], dev).contiguous()
+                     for s, dev in enumerate(devs)]
+            (counts,) = _read_back(dev0, counts)
+        widths = counts.sum(axis=1).max(axis=1).tolist()
+        unions = []
+        for s, dev in enumerate(devs):
+            with trace.span("index.shard_select", entry=True, exit=True,
+                            device=dev):
+                trace.add("candidates", int(counts[s].sum()))
+                slots = shard_select(self._codes_parts[s], q_parts[s],
+                                     valid_rows[s], blocks[s], cuts[s],
+                                     takes[s], widths[s])
+                blocks[s] = None
+                hits = (slots < rows).sum(dim=(1, 2))
+                flat = slots.permute(1, 0, 2).reshape(b, -1)
+                if g > 1:   # the real slots first, ascending
+                    flat = torch.sort(flat, dim=1).values[:, :widths[s]]
+                unions.append((flat, hits))
+        found = []
+        for s, dev in enumerate(devs):
+            with trace.span("index.shard_rerank", entry=True, exit=True,
+                            device=dev):
+                flat, hits = unions[s]
+                uniq = flat < rows
+                uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
+                local = torch.clamp(flat, max=rows - 1).long()
+                valid = uniq if mask_rows is None else (uniq & _shard_mask(
+                    mask_rows, s * rows, valid_rows[s], rows, dev)[local])
+                m, top = margin_rerank_batch(self._x_parts[s], w_parts[s],
+                                             local, valid, k)
+                top = self._ids_parts[s][top]
+                if m.shape[1] < k:
+                    m = torch.nn.functional.pad(m, (0, k - m.shape[1]),
+                                                value=torch.inf)
+                    top = torch.nn.functional.pad(top, (0, k - top.shape[1]),
+                                                  value=-1)
+                lists = candidate_lists(
+                    torch.where(uniq, flat, -1).contiguous(),
+                    valid.contiguous(), self._ids_parts[s])
+                found.append((m, top, lists, hits))
+        with trace.span("index.exchange", entry=True, exit=True,
+                        device=dev0):
+            found = [tuple(_cross(t, dev0) for t in f) for f in found]
+        with trace.span("index.union", entry=True, exit=True,
+                        device=dev0) as union:
+            out = torch.full((b, c + 3), -1, dtype=torch.int64, device=dev0)
+            cnts = torch.stack([f[2][:, f[2].shape[1] - 2] for f in found])
+            offs = torch.cumsum(cnts, 0) - cnts
+            for s, (_, _, lists, _) in enumerate(found):
+                width = lists.shape[1] - 2
+                if width == 0:
+                    continue
+                j = torch.arange(width, device=dev0)[None, :]
+                dest = torch.where(j < cnts[s][:, None],
+                                   offs[s][:, None] + j, c + 2)
+                out.scatter_(1, dest, lists[:, :width])
+            out[:, c] = cnts.sum(0)
+            out[:, c + 1] = torch.stack([f[2][:, -1] for f in found]).amax(0)
+            hits = torch.stack([f[3] for f in found]).sum(0)
+        with trace.span("index.rerank", entry=union, exit=True,
+                        device=dev0) as rerank:
+            m_all = torch.cat([f[0] for f in found], dim=1)
+            m_all, order = torch.sort(m_all, dim=1, stable=True)
+            margins = m_all[:, :k]
+            top = torch.gather(torch.cat([f[1] for f in found], dim=1), 1,
+                               order[:, :k])
+        with trace.span("index.readback", entry=rerank):
+            margins, top, hits, lists = _read_back(dev0, margins, top, hits,
+                                                   out)
+            # every shard's work of the batch preceded what was just read
+            for dev in devs:
+                trace.anchor(dev)
+            return _scan_answers(margins, top, hits, lists, c, topk)
 
     def scan_table_topk(self, w, l: int = 16, mesh=None,
                         shard_axis: str = "data"
@@ -511,6 +771,7 @@ class MultiTableIndex:
         if mesh is not None:
             shard_count(mesh, shard_axis)
         self._require_fit("scan_table_topk")
+        self._whole_rows("scan_table_topk")
         w = np.atleast_2d(np.asarray(w, np.float32))
         b = w.shape[0]
         if not self.active.any():
@@ -529,6 +790,7 @@ class MultiTableIndex:
         id: (B, C) float32, +inf at padding (-1) or ids that no longer
         resolve."""
         self._require_fit("candidate_margins")
+        self._whole_rows("candidate_margins")
         w = np.atleast_2d(np.asarray(w, np.float32))
         cand_ids = np.asarray(cand_ids, dtype=np.int64)
         known = (cand_ids >= 0) & (cand_ids < self._next_id)

@@ -13,10 +13,12 @@ spans.
 
 Device times are opt-in: ``span(name, entry=True, exit=True)`` records a
 CUDA timing event at entry and at exit, on the stream that was current
-when its root opened; ``entry=<a closed sibling>`` takes that sibling's
-exit event as its own entry event (the caller enqueues no device work
-between them).  Roots record none.  The events come from a pool and
-nothing waits on them on the hot path.
+when its root opened, or with ``device=`` on that device's current stream
+(a span of one card's work in a program that drives several);
+``entry=<a closed sibling>`` takes that sibling's exit event as its own
+entry event (the caller enqueues no device work between them).  Roots
+record none.  The events come from a pool and nothing waits on them on
+the hot path.
 
 Spans record inside ``session()`` and while a ``torch.profiler`` session
 is open.  The check is made once per root and its children inherit it;
@@ -27,15 +29,18 @@ closed, so two profiler sessions with no root between them share one.
 The spans are not profiler ranges: the profiler would draw a range on
 the device's timeline too, where it would be taken for device work.
 
-One clock: a session takes one anchor, an event on the device's clock and
-the host time at which the device reached it.  ``anchor()``, called
-where the program has just waited for the device (the first blocking
-read of a micro-batch's answers), records it with no further wait, once
-a session; a session without one takes it when it is resolved, after
-waiting for the device.  Resolving (at the end of ``session()``, and in
-``last_session()``) waits for the device once and places every event of
-the closed spans on the host clock: the anchor's host time plus the
-event's time after the anchor (negative before it).  The same pass adds
+One clock: a session takes one anchor for each device its events are on,
+an event on that device's clock and the host time at which the device
+reached it (two devices' events cannot be compared with each other).
+``anchor()``, called where the program has just waited for a stream (the
+first blocking read of a micro-batch's answers), records the anchor of
+the innermost span's device, or of a device it names whose work the
+program knows is done, with no further wait, once a session; a device
+without one takes it when the session is resolved, after waiting for
+that device.  Resolving (at the end of ``session()``, and in
+``last_session()``) waits for the devices once and places every event of
+the closed spans on the host clock: its device's anchor's host time plus
+the event's time after that anchor (negative before it).  The same pass adds
 each span into the session's totals, which ``summary`` reads without
 waiting for anything.
 
@@ -61,7 +66,9 @@ class Session:
     """The spans of one session, in the order they opened.  ``device``:
     whether its spans may carry device times (CUDA was initialised when
     it started); ``dropped``: spans not recorded past ``MAX_SPANS``;
-    ``anchor``: (event, host ns) once taken."""
+    ``anchor``: (event, host ns) once taken, for the roots' streams;
+    ``anchors``: {device index: (event, host ns)} for the other devices
+    that spans given ``device=`` recorded on."""
 
     def __init__(self):
         self.spans: list[Span] = []
@@ -69,6 +76,7 @@ class Session:
         self.device = False
         self.started = False
         self.anchor: tuple | None = None
+        self.anchors: dict = {}
         self.totals: dict = {}   # (scope, name) -> sums over resolved spans
         self._resolved = 0       # spans before this index are resolved
 
@@ -86,26 +94,33 @@ class Session:
         timed = [s for s in todo if s._e0 is not None or s._e1 is not None]
         if timed:
             torch.cuda.synchronize()
-            if self.anchor is None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record(timed[0]._stream)
-                self.anchor = (ev, time.perf_counter_ns())
-            anchor, anchor_ns = self.anchor
+            streams = {}        # a stream of each anchor key's spans
+            for s in timed:
+                streams.setdefault(s._key, s._stream)
+            if None in streams and self.anchor is None:
+                self.anchor = _take_anchor(streams[None])
+            for key, stream in streams.items():
+                if key is not None:
+                    torch.cuda.synchronize(key)
+                    if key not in self.anchors:
+                        self.anchors[key] = _take_anchor(stream)
 
-            def at(ev):
+            def at(s, ev):
+                anchor, anchor_ns = (self.anchor if s._key is None
+                                     else self.anchors[s._key])
                 return anchor_ns + round(1e6 * anchor.elapsed_time(ev))
             for s in timed:
                 if s._e0 is not None:
-                    s.device_start = at(s._e0)
+                    s.device_start = at(s, s._e0)
                 if s._e1 is not None:
-                    s.device_end = at(s._e1)
+                    s.device_end = at(s, s._e1)
         free = []
         for s in todo:
             self._add(s)
             if s._own0:
-                free.append(s._e0)
+                free.append((s._key, s._e0))
             if s._own1:
-                free.append(s._e1)
+                free.append((s._key, s._e1))
             s._e0 = s._e1 = None
             s.resolved = True
         _tracer.release(free)
@@ -139,29 +154,53 @@ class Session:
         return t
 
 
+def _take_anchor(stream) -> tuple:
+    """(event, host ns): an event recorded on ``stream``, which the caller
+    has just waited for, and the host time."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev, time.perf_counter_ns()
+
+
 class Span:
     """One recorded span; its own context manager.  Times are ns on the
     host clock; ``device_start`` / ``device_end`` are None until resolved,
     and stay None where the span records no event (and off CUDA).
-    ``scope``: its root's, which a summary can select."""
+    ``scope``: its root's, which a summary can select.  ``device``: the
+    device it was given (``span(..., device=)``, inherited by its
+    children), None on its root's stream."""
 
-    __slots__ = ("name", "id", "parent", "batch", "scope", "host_start",
-                 "host_end", "device_start", "device_end", "counts",
-                 "marks", "resolved", "_up", "_session", "_stream",
-                 "_entry", "_exit", "_e0", "_e1", "_own0", "_own1")
+    __slots__ = ("name", "id", "parent", "batch", "scope", "device",
+                 "host_start", "host_end", "device_start", "device_end",
+                 "counts", "marks", "resolved", "_up", "_session",
+                 "_stream", "_key", "_entry", "_exit", "_e0", "_e1",
+                 "_own0", "_own1")
 
     def __init__(self, name: str, session: Session, parent: Span | None,
-                 scope=None, entry=False, exit=False):
+                 scope=None, entry=False, exit=False, device=None):
         self.name = name
         self.id = next(_tracer.ids)
         self._up = parent
+        # _key: the anchor of this span's events, None for the roots'
+        # streams, else its device's index
+        self._key = None
         if parent is None:
             self.parent, self.batch, self.scope = None, self.id, scope
+            self.device = None
             self._stream = (torch.cuda.current_stream() if session.device
                             else None)
         else:
             self.parent, self.batch = parent.id, parent.batch
             self.scope, self._stream = parent.scope, parent._stream
+            self._key, self.device = parent._key, parent.device
+            if device is not None:
+                self.device = device = torch.device(device)
+                self._stream = self._key = None
+                if session.device and device.type == "cuda":
+                    root = _root_stream(parent)
+                    self._stream = torch.cuda.current_stream(device)
+                    if self._stream != root:
+                        self._key = self._stream.device.index
         self.host_start = self.host_end = None
         self.device_start = self.device_end = None
         self.counts: dict | None = None
@@ -178,7 +217,7 @@ class Span:
         entry = self._entry
         if entry is True:
             if self._stream is not None:
-                self._e0 = _tracer.event()
+                self._e0 = _tracer.event(self._key)
                 self._e0.record(self._stream)
                 self._own0 = True
         elif isinstance(entry, Span) and entry._e1 is not None:
@@ -190,12 +229,18 @@ class Span:
 
     def __exit__(self, *exc) -> bool:
         if self._exit:
-            self._e1 = _tracer.event()
+            self._e1 = _tracer.event(self._key)
             self._e1.record(self._stream)
             self._own1 = True
         self.host_end = time.perf_counter_ns()
         _local.stack.pop()
         return False
+
+
+def _root_stream(span: Span):
+    while span._up is not None:
+        span = span._up
+    return span._stream
 
 
 class _Off:
@@ -222,7 +267,9 @@ _local = _Local()       # each thread's stack of open spans
 
 
 class _Tracer:
-    """The process's sessions, the event pool and the span ids."""
+    """The process's sessions, the event pools and the span ids.  An
+    event stays on the device it was first recorded on: ``pool`` keeps
+    the roots' streams' events, ``pools`` the other devices' by index."""
 
     def __init__(self):
         self.ids = itertools.count(1)
@@ -231,6 +278,7 @@ class _Tracer:
         self.profiled: Session | None = None    # opened under the profiler
         self.last: Session | None = None
         self.pool: list = []
+        self.pools: dict = {}
 
     def root(self, name: str, scope):
         """A root span, once ``root`` found that a session records."""
@@ -245,22 +293,29 @@ class _Tracer:
         return self.open(name, sess, None, scope)
 
     def open(self, name: str, sess: Session, parent: Span | None,
-             scope=None, entry=False, exit=False):
+             scope=None, entry=False, exit=False, device=None):
         if len(sess.spans) >= MAX_SPANS:
             sess.dropped += 1
             return OFF
-        s = Span(name, sess, parent, scope, entry, exit)
+        s = Span(name, sess, parent, scope, entry, exit, device)
         sess.spans.append(s)
         return s
 
-    def event(self):
+    def _pool(self, key) -> list:
+        return self.pool if key is None else self.pools.setdefault(key, [])
+
+    def event(self, key=None):
         try:
-            return self.pool.pop()
+            return self._pool(key).pop()
         except IndexError:
             return torch.cuda.Event(enable_timing=True)
 
     def release(self, events: list) -> None:
-        self.pool.extend(events[:max(0, POOL_MAX - len(self.pool))])
+        """Return (anchor key, event) pairs to their pools."""
+        for key, ev in events:
+            pool = self._pool(key)
+            if len(pool) < POOL_MAX:
+                pool.append(ev)
 
 
 _tracer = _Tracer()
@@ -283,16 +338,18 @@ def root(name: str, scope=None):
     return _tracer.root(name, scope)
 
 
-def span(name: str, *, entry=False, exit: bool = False):
+def span(name: str, *, entry=False, exit: bool = False, device=None):
     """A span named ``name`` under the calling thread's innermost open
     span, or the shared ``OFF`` when none is open.  entry / exit: record
     a device event there; ``entry`` may instead be a closed sibling span,
-    whose exit event then marks this span's entry."""
+    whose exit event then marks this span's entry.  device: the events go
+    on that device's current stream (default: the parent's stream)."""
     stack = _local.stack
     if not stack:
         return OFF
     parent = stack[-1]
-    return _tracer.open(name, parent._session, parent, None, entry, exit)
+    return _tracer.open(name, parent._session, parent, None, entry, exit,
+                        device)
 
 
 def add(key: str, n: int = 1) -> None:
@@ -317,19 +374,32 @@ def mark(name: str) -> None:
         s.marks[name] = time.perf_counter_ns()
 
 
-def anchor() -> None:
-    """Take the session's anchor here, once: call it where the calling
-    thread has just waited for its stream's work (a blocking read), so
-    the device reaches the event as it is recorded.  Nothing when no span
-    is open, off CUDA, or the session has its anchor."""
+def anchor(device=None) -> None:
+    """Take the anchor of the innermost open span's device, or of
+    ``device``, here, once a session: call it where that device's stream
+    has no work left (the calling thread has just waited for it, or for
+    work that followed all of it), so the device reaches the event as it
+    is recorded.  Nothing when no span is open, off CUDA, or the session
+    has that anchor."""
     stack = _local.stack
     if stack:
         s = stack[-1]
         sess = s._session
-        if sess.anchor is None and s._stream is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(s._stream)
-            sess.anchor = (ev, time.perf_counter_ns())
+        stream, key = s._stream, s._key
+        if device is not None and stream is not None:
+            device = torch.device(device)
+            if device.type != "cuda":
+                return
+            stream = torch.cuda.current_stream(device)
+            key = (None if stream == _root_stream(s)
+                   else stream.device.index)
+        if stream is None:
+            return
+        if key is None:
+            if sess.anchor is None:
+                sess.anchor = _take_anchor(stream)
+        elif key not in sess.anchors:
+            sess.anchors[key] = _take_anchor(stream)
 
 
 @contextlib.contextmanager

@@ -1,4 +1,4 @@
-"""The port-side checks on the CPU: the launch contracts of the nine CUDA
+"""The port-side checks on the CPU: the launch contracts of the CUDA
 kernels (``repro_torch.kernels.contracts``), held to the JAX package's
 sentinel rules and to the port's own ``cand_encoding``, and the capture
 sentinel (``repro_torch.utils.captures.CaptureCounter``).  The contracts'
@@ -23,7 +23,8 @@ def test_the_sweep_holds_every_contract():
     kernels = {case.kernel for case, _ in cases}
     assert kernels == {"hist", "hist_dma", "fused", "distance",
                        "distance_batch", "bilinear_hash",
-                       "bilinear_hash_seeded", "lbh_chain", "cand_lists"}
+                       "bilinear_hash_seeded", "lbh_chain", "cand_lists",
+                       "shard_select"}
     assert len(cases) > 150
     assert C.run() == []
 
@@ -56,7 +57,8 @@ def test_every_case_names_a_declared_plan_export():
     assert exports == {"topk_hist_plan", "topk_hist_dma_plan",
                        "topk_fused_plan", "distance_plan",
                        "distance_batch_plan", "bh_plan", "bh_seeded_plan",
-                       "lbh_chain_plan", "cand_lists_plan"}
+                       "lbh_chain_plan", "cand_lists_plan",
+                       "shard_select_plan"}
 
 
 def test_uint8_ceiling():

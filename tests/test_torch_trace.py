@@ -7,7 +7,8 @@ profiler event is the program's; answers are identical with tracing on
 and off; the scan path's device events (five a batch, stand-ins on the
 CPU) are resolved onto the host clock from the anchor; a service's
 stats hold its own spans and wait for nothing; threads keep their own
-stacks.  Device times themselves need the card
+stacks; spans given a card take that card's stream and are placed by that
+card's own anchor (a fake clock per card).  Device times themselves need the card
 (``perfbench/run.py --trace 1``)."""
 import sys
 import threading
@@ -422,3 +423,153 @@ def test_a_session_keeps_at_most_max_spans(monkeypatch):
                                             "service.batch"]
     assert sess.dropped == 1
     assert trace.summary(sess)["index.hash"]["count"] == 1
+
+
+class _Stream:
+    """A CUDA stream's stand-in: one per device index."""
+
+    def __init__(self, index):
+        self.device = torch.device("cuda", index)
+
+
+@pytest.fixture
+def fake_cards(monkeypatch):
+    """Three cards as the tracer sees them: a stream each, and events on a
+    fake clock of each card's own, card i's running 1,000 i ms ahead (no
+    two cards' clocks agree).  Returns (every event made, the devices
+    synchronised)."""
+    streams = {i: _Stream(i) for i in range(3)}
+    made, synced = [], []
+    tick = iter(range(10**9))
+
+    class Event(_Event):
+        def record(self, stream=None):
+            self.card = stream.device.index
+            self.ms = 1000.0 * self.card + 0.25 * next(tick)
+            self.records += 1
+
+        def elapsed_time(self, other):
+            assert other.card == self.card, "events of two cards compared"
+            return other.ms - self.ms
+
+    def event(enable_timing=True):
+        e = Event()
+        made.append(e)
+        return e
+
+    def current_stream(device=None):
+        return streams[0 if device is None else torch.device(device).index]
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(device))
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(trace._tracer, "pool", [])
+    monkeypatch.setattr(trace._tracer, "pools", {})
+    return made, synced
+
+
+def test_each_card_takes_its_own_anchor(fake_cards):
+    """Spans given ``device=`` record on that card's stream and are placed
+    on the host clock by that card's anchor, taken where the program says
+    its work is done (card 1) or when the session is resolved after
+    waiting for the card (card 2); a span given the roots' own card shares
+    the roots' anchor, taken at the blocking read; the events go back to
+    each card's own pool; and the totals add every card's wall."""
+    made, synced = fake_cards
+    with trace.session() as sess:
+        for _ in range(2):
+            with trace.root("service.batch"):
+                with trace.span("index.exchange", entry=True, exit=True,
+                                device="cuda:0") as ex:
+                    pass
+                for card in (1, 2):
+                    with trace.span("index.shard_select", entry=True,
+                                    exit=True, device=f"cuda:{card}"):
+                        trace.add("candidates", card)
+                with trace.span("index.readback", entry=ex):
+                    trace.anchor()
+                    trace.anchor("cuda:1")      # card 1's work is done
+                    trace.anchor("cuda:0")      # the roots' own: no-op
+                    trace.anchor("cpu")
+                card1 = sess.anchors[1][0]
+    assert sess.device and set(sess.anchors) == {1, 2}
+    assert sess.anchor[0].card == 0
+    assert sess.anchors[1][0] is card1 and 1 not in synced[:1]
+    assert {1, 2} <= set(synced)
+    by_card = {}
+    for s in sess.spans:
+        if s.name == "index.shard_select":
+            assert s.device == torch.device("cuda", int(s.counts[
+                "candidates"]))
+            by_card.setdefault(s.device.index, []).append(s)
+    for card, spans_ in by_card.items():
+        ev, host = sess.anchors[card]
+        assert ev.card == card
+        for s in spans_:
+            assert s.device_start < s.device_end
+        # card 1's anchor lies between its two batches' spans, card 2's
+        # after both
+        first, second = spans_
+        assert first.device_end < host
+        assert (second.device_start > host) == (card == 1)
+    ex0 = sess.spans[1]
+    assert ex0.name == "index.exchange" and ex0.device == torch.device(
+        "cuda", 0)
+    assert ex0.device_end <= sess.anchor[1]
+    # 4 events for each card's two spans, 2 exchange events each batch
+    # (the read-back borrows one), three anchors
+    assert len(made) == 2 * (2 + 2 + 2) + 3
+    assert sorted(len(p) for p in trace._tracer.pools.values()) == [4, 4]
+    assert len(trace._tracer.pool) == 4
+    assert all(e.card == k for k, p in trace._tracer.pools.items()
+               for e in p)
+    got = trace.summary(sess)
+    walls = sum(s.device_end - s.device_start for s in sess.spans
+                if s.name == "index.shard_select")
+    assert got["index.shard_select"]["count"] == 4
+    assert got["index.shard_select"]["device_wall_s"] == pytest.approx(
+        1e-9 * walls)
+    assert got["index.shard_select"]["counts"] == {"candidates": 6}
+
+
+def test_card_spans_are_placed_by_their_cards_anchor(monkeypatch):
+    """Resolving places an event of card k at card k's anchor's host time
+    plus its ms after that anchor; the roots' anchor places the others;
+    a later resolve waits for each card again and reuses its anchor."""
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(device))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: "stream")
+    monkeypatch.setattr(trace._tracer, "pool", [])
+    monkeypatch.setattr(trace._tracer, "pools", {})
+    sess = trace.Session()
+    sess.started = sess.device = True
+
+    def ev(ms):
+        e = _Event()
+        e.ms = ms
+        return e
+    sess.anchor = (ev(100.0), 5_000_000)
+    sess.anchors = {3: (ev(7_000.0), 9_000_000)}
+    root = trace.Span("service.batch", sess, None)
+    root.host_start, root.host_end = 0, 10
+    own = trace.Span("index.union", sess, root)
+    card = trace.Span("index.shard_select", sess, root)
+    card._key, card.device = 3, torch.device("cuda", 3)
+    own.host_start, own.host_end = 1, 2
+    card.host_start, card.host_end = 3, 4
+    own._e0, own._e1, own._own0, own._own1 = ev(99.0), ev(101.0), True, True
+    card._e0, card._e1 = ev(6_999.5), ev(7_001.25)
+    card._own0 = card._own1 = True
+    sess.spans = [root, own, card]
+    monkeypatch.setattr(trace._tracer, "last", sess)
+    trace.last_session()
+    assert (own.device_start, own.device_end) == (4_000_000, 6_000_000)
+    assert (card.device_start, card.device_end) == (8_500_000, 10_250_000)
+    assert synced == [None, 3]
+    assert len(trace._tracer.pool) == 2 and len(trace._tracer.pools[3]) == 2
+    assert trace.summary(sess)["index.shard_select"]["device_wall_s"] == \
+        pytest.approx(1.75e-3)
