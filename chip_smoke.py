@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--batches 16]
 
-Run from the repository root.  It builds the port's nine CUDA kernels
-(seven libraries) from ``src/repro_torch/kernels/csrc``, holds each against
+Run from the repository root.  It builds the port's eleven CUDA kernels
+(nine libraries) from ``src/repro_torch/kernels/csrc``, holds each against
 its plain PyTorch version at the shapes its path gives it, then drives four
 paths at full size on the Tiny-1M geometry (1,060,000 x 385 float32
 features, 10 classes, from ``--seed``):
@@ -15,6 +15,8 @@ features, 10 classes, from ``--seed``):
   and an exhaustive scan, its candidate-list kernel held to its plain
   version on the phase's own union slots, and the pinned host memory that
   a few thousand kept results hold read from the caching host allocator;
+  then the re-rank's margins kernel (kernel 11) at the three benchmark
+  cells' shapes against its plain version, beside its bound;
 - streaming ingest: ``LSMMultiTableIndex`` of the same configuration
   (``lsm_delta_threshold=0.02``) fitted on the 1,000,000 unlabelled rows
   behind ``AsyncHashQueryService(mode="scan", scan_l=128)``, with the
@@ -232,6 +234,12 @@ SHARD_INSERTS = 5_000
 # the co-located index held to the one-card index, at its depth
 SELECT_ROWS, SELECT_SHARDS, SELECT_B, SELECT_L = 19_840_505, 4, 10, 468_947
 SELECT_INDEX_ROWS, SELECT_INDEX_L = 2_060_003, 11_829
+# kernel 11 at the three cells' shapes: (label, rows of x, B, C, d); the
+# four-card cell's C is a card's share of its 468,947-row depth, over a
+# 4M-row x (a card holds 19.8M; past the 50 MB L2 either way)
+MARGIN_SHAPES = (("tiny1m", 1_060_000, 10, 6_264, 385),
+                 ("news20", 18_846, 20, 201, 26_215),
+                 ("mesh4", 4_000_000, 10, 117_237, 385))
 # the LM serving path (qwen3-1.7b at full width and depth): batch,
 # prompt and generated tokens; the fp32 gates' sequence (prefilled half
 # way), and the depth and length of the card-vs-CPU gate
@@ -661,13 +669,15 @@ def shard_select_phase(dev, rows: int | None = None,
     ``index_rows`` rows as co-located shards (``fit_sharded``) answers as
     the one-card index over the same rows, bit for bit, and one of its
     micro-batches launches SELECT_SHARDS histogram passes, twice that of
-    the offsets and select, one list kernel a shard and no distance
-    kernel.  Returns the phase's record."""
+    the offsets and select, one list kernel and one margins kernel a
+    shard and no distance kernel.  Returns the phase's record, which is
+    also kernel 10's record in the ``kernels`` line."""
     import numpy as np
     import torch
     from repro_torch.core.indexer import IndexConfig
     from repro_torch.core.search import cutoff_exchange
     from repro_torch.kernels import _build, candidates, hamming, ops
+    from repro_torch.kernels import margins
     from repro_torch.kernels import shard_select as ss
     from repro_torch.serving.multi_table import MultiTableIndex
     from repro_torch.utils.mesh import make_mesh
@@ -720,12 +730,14 @@ def shard_select_phase(dev, rows: int | None = None,
     sel_ms = kernel_device_ms(kernels, "shard_select_kernel")
     plain_ms = cuda_ms(torch, lambda: ss.shard_select_plain(
         c, q, v, blocks[0], cut, tk, widths[0]), 5)
+    plain_hist_ms = cuda_ms(torch, lambda: ss.shard_histogram_plain(c, q, v),
+                            5)
     bound = ops.shard_select_bound(v, 1, SELECT_B, selected)
     out = {"rows": rows, "b": SELECT_B, "l": SELECT_L,
            "selected_shard0": selected, "hist_ms": hist_ms,
            "offsets_ms": offs_ms, "select_ms": sel_ms,
-           "plain_select_ms": plain_ms, "bound_ms": bound.ms,
-           "bound_by": bound.by}
+           "plain_hist_ms": plain_hist_ms, "plain_select_ms": plain_ms,
+           "bound_ms": bound.ms, "bound_by": bound.by}
     print("shard select kernels: " + json.dumps(out), flush=True)
     for lib_line in ptxas_lines(_build.build_log(ss.LIBRARY), "shard_"):
         print(f"  ptxas {lib_line}")
@@ -753,25 +765,123 @@ def shard_select_phase(dev, rows: int | None = None,
         a = single.query_scan_batch(w, l=l, topk=topk, mask=m)
         counts0 = (ss.shard_histogram.launches, ss.shard_select.launches,
                    hamming.hamming_distance_batch.launches,
-                   candidates.candidate_lists.launches)
+                   candidates.candidate_lists.launches,
+                   margins.row_margins.launches)
         b = sharded.query_scan_batch(w, l=l, topk=topk, mask=m)
         launches = [after - before for after, before in zip(
             (ss.shard_histogram.launches, ss.shard_select.launches,
              hamming.hamming_distance_batch.launches,
-             candidates.candidate_lists.launches), counts0)]
+             candidates.candidate_lists.launches,
+             margins.row_margins.launches), counts0)]
         diff = batch_diff([b], [a])
         check(not any(diff.values()),
               f"co-located shards, l {l}, topk {topk}: answers equal the "
               f"one-card index's (differ: {diff})")
         check(launches == [SELECT_SHARDS, 2 * SELECT_SHARDS, 0,
-                           SELECT_SHARDS],
+                           SELECT_SHARDS, SELECT_SHARDS],
               f"a sharded micro-batch's launches (histogram, offsets + "
-              f"select, distances, lists): {launches}")
+              f"select, distances, lists, margins): {launches}")
     out["index_rows"] = index_rows
     out["index_launches"] = launches
+    # the kernels' record: one shard's three passes, against the bound
+    # of all three and the plain histogram and select
+    out.update(name="shard_select", route="cuda",
+               source="src/repro_torch/kernels/csrc/shard_select.cu",
+               replaces="src/repro/kernels/hamming.py:429", max_abs_err=0,
+               ms=None if None in (hist_ms, offs_ms, sel_ms)
+               else hist_ms + offs_ms + sel_ms,
+               plain_ms=plain_hist_ms + plain_ms, library_ms=None)
     print(f"co-located index over {index_rows} rows: answers equal the "
           f"one-card index's; launches a micro-batch {launches}", flush=True)
     return out
+
+
+def row_margins_phase(dev, shapes=None) -> dict:
+    """Kernel 11 (``kernels.margins.row_margins``, csrc/row_margins.cu) at
+    the three cells' shapes (MARGIN_SHAPES: label, rows of x, B, C, d;
+    the four-card cell's a card's share of the candidates, ascending as
+    its select gives them): each call within ``ref.row_margins_limit`` of
+    float64 and within twice it of the plain version, a slot's margin
+    +inf where it is invalid; one launch a call.  The same check refuses
+    what a kernel would give that multiplied in TF32 or bf16 or lost one
+    partial (``ref.row_margins_lossy``): each such run lies past it on
+    most slots.  Device ms (profiler) beside ``ops.row_margins_bound``
+    and the plain version's ms.  Returns the kernels' record, its
+    ``shapes`` each shape's."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import margins as mg
+    from repro_torch.kernels.ref import row_margins_limit, row_margins_lossy
+    g = torch.Generator(device=dev).manual_seed(11)
+    out, worst, err = {}, 0.0, 0.0
+
+    def against(got, want, tol, valid):
+        """|got - want| / tol over the valid slots: its largest, and the
+        share of slots past 1."""
+        r = (got[valid].double() - want[valid].double()).abs() / tol[valid]
+        return float(r.max()), float((r > 1).double().mean())
+
+    for label, n, b, c, d in (MARGIN_SHAPES if shapes is None else shapes):
+        x = torch.randn((n, d), generator=g, device=dev)
+        w = torch.randn((b, d), generator=g, device=dev)
+        rows = torch.randint(0, n, (b, c), generator=g, device=dev)
+        if label == "mesh4":
+            rows = torch.sort(rows, dim=1).values
+        valid = torch.rand((b, c), generator=g, device=dev) < 0.97
+        launches = mg.row_margins.launches
+        got = mg.row_margins(x, w, rows, valid)
+        check(mg.row_margins.launches == launches + 1,
+              f"row margins at {label}: one launch")
+        plain = mg.row_margins_plain(x, w, rows, valid)
+        tol, exact = row_margins_limit(x, w, rows, valid)
+        to_exact = against(got, exact, tol, valid)
+        to_plain = against(got, plain, 2 * tol, valid)
+        check(bool(torch.isinf(got[~valid]).all()) and to_exact[1] == 0
+              and to_plain[1] == 0,
+              f"row margins at {label}: kernel within the limit of float64 "
+              f"and twice it of plain (largest share of it {to_exact[0]}, "
+              f"{to_plain[0]})")
+        err = max(err, float((got - plain)[valid].abs().max()))
+        worst = max(worst, to_plain[0])
+        lossy = {}
+        for kind in ("tf32", "bf16", "lost_partial"):
+            xl, wl = row_margins_lossy(x, w, kind)
+            lossy[kind] = against(mg.row_margins(xl, wl, rows, valid),
+                                  exact, tol, valid)
+            del xl, wl
+        check(all(share > 0.5 for _, share in lossy.values()),
+              f"row margins at {label}: the limit of float64 refuses a "
+              f"lossy sum (largest share of it, share of slots past it: "
+              f"{lossy})")
+        del plain, tol, exact
+        call = (lambda x=x, w=w, rows=rows, valid=valid:
+                mg.row_margins(x, w, rows, valid))
+        ms = profiled_ms(torch, call, 20, "row_margins_kernel")
+        check(ms is not None, f"the profiler saw row_margins_kernel "
+              f"({label})")
+        plain_ms = cuda_ms(torch, lambda: mg.row_margins_plain(
+            x, w, rows, valid), 3)
+        bound = ops.row_margins_bound(int(valid.sum()), d)
+        out[label] = {"n": n, "b": b, "c": c, "d": d, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound.ms,
+                      "bound_by": bound.by,
+                      "roofline_pct": 100 * bound.ms / ms,
+                      "of_limit_exact": to_exact[0],
+                      "of_limit_plain": to_plain[0], "lossy": lossy}
+        print(f"row margins {label}: " + json.dumps(out[label]), flush=True)
+        del x, w, rows, valid, got
+        torch.cuda.empty_cache()
+    for line in ptxas_lines(_build.build_log(mg.LIBRARY), "row_margins"):
+        print(f"  ptxas {mg.LIBRARY}: {line}")
+    print(f"row margins: kernel - plain at most {worst} of twice the limit, "
+          f"{err} absolute")
+    first = out[next(iter(out))]
+    return dict(name="row_margins", route="cuda",
+                source="src/repro_torch/kernels/csrc/row_margins.cu",
+                # the JAX package's re-rank is plain jnp
+                replaces=None, max_abs_err=err, ms=first["ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None, shapes=out)
 
 
 def _sync(torch, dev) -> None:
@@ -1775,7 +1885,7 @@ def contracts_phase(build_mod) -> dict:
     report's."""
     import re
     from repro_torch.kernels import bilinear_hash, candidates, contracts
-    from repro_torch.kernels import hamming, lbh_grad, shard_select
+    from repro_torch.kernels import hamming, lbh_grad, margins, shard_select
     findings = contracts.run()
     print(f"contract sweep: {len(contracts.sweep())} cases, findings "
           f"{findings}")
@@ -1831,7 +1941,8 @@ def contracts_phase(build_mod) -> dict:
                       (candidates.LIBRARY, "cand_lists_kernel"),
                       (shard_select.LIBRARY, "shard_hist_kernel"),
                       (shard_select.LIBRARY, "shard_offsets_kernel"),
-                      (shard_select.LIBRARY, "shard_select_kernel")):
+                      (shard_select.LIBRARY, "shard_select_kernel"),
+                      (margins.LIBRARY, "row_margins_kernel")):
         lines = [ln for ln in ptxas_lines(build_mod.build_log(lib), frag)
                  if "registers" in ln]
         got = sorted({int(m.group(1)) if (m := re.search(
@@ -2491,6 +2602,7 @@ def main() -> int:
         LIBRARY as CHAIN_LIB, lbh_chain, lbh_chain_plain)
     from repro_torch.kernels.candidates import (
         LIBRARY as LISTS_LIB, candidate_lists, candidate_lists_plain)
+    from repro_torch.kernels.margins import row_margins
     from repro_torch.kernels.ref import lbh_chain_bound, sign_flip_ratios
     from repro_torch.svm.active import (ALConfig, make_selector,
                                         run_active_learning)
@@ -2795,7 +2907,8 @@ def main() -> int:
 
     all_kernels = (bilinear_hash_seeded, hamming_topk_hist, bilinear_hash,
                    lbh_chain, hamming_topk_fused, hamming_topk_hist_dma,
-                   hamming_distance_batch, hamming_distance, candidate_lists)
+                   hamming_distance_batch, hamming_distance, candidate_lists,
+                   row_margins)
 
     def zero_counts():
         for kern in all_kernels:
@@ -2825,6 +2938,8 @@ def main() -> int:
           "both serving kernels launched on the serving path")
     check(serve_launches["candidate_lists"] == args.batches,
           "the candidate-list kernel launched once a micro-batch")
+    check(serve_launches["row_margins"] == args.batches,
+          "the margins kernel launched once a micro-batch")
     check([f.seed for f in index.families] == seeds,
           "the index hashes with the seeds checked in phase 3")
     ans_ids = np.array([a.index for a in answers])
@@ -2896,6 +3011,10 @@ def main() -> int:
         plain_ms=lists_plain_ms, bound_ms=lists_bound.ms,
         bound_by=lists_bound.by, library_ms=None)
     del union_slots, flat0, valid0
+
+    # -- 5b. kernel 11, the re-rank's margins, at the cells' shapes ---------
+    phase("5b row margins")
+    records["row_margins"] = row_margins_phase(dev)
 
     # exhaustive scan: the smallest margin over all rows, per query
     w_t = torch.from_numpy(ws).to(dev)
@@ -4239,6 +4358,10 @@ def main() -> int:
     # -- 18b. the cutoff exchange's kernels at the four-card cell's shapes --
     phase("18b shard select kernels")
     records["shard_select"] = shard_select_phase(dev)
+    # kernel 10's launches: one co-located micro-batch's histogram,
+    # offsets and select passes
+    select_launches = {"shard_select": sum(
+        records["shard_select"]["index_launches"][:2])}
     torch.cuda.empty_cache()
 
     # -- 19. the LM serving path: qwen3-1.7b at full width and depth -------
@@ -4413,7 +4536,9 @@ def main() -> int:
     kernels = []
     for name, rec in records.items():
         path = (shard_launches if name == "hamming_topk_fused"
-                else serve_launches if name == "candidate_lists"
+                else serve_launches if name in ("candidate_lists",
+                                                "row_margins")
+                else select_launches if name == "shard_select"
                 else layer_launches if name in layer
                 else act_launches)
         rec["launches"] = path[name]

@@ -3,7 +3,9 @@ scan and the row-sharded scan over a mesh.
 
 Plain PyTorch: the single-device functions run on whatever device their
 tensors live on and launch no hand-written kernel (the fused scan kernels
-are reached through ``repro_torch.kernels.ops``).  ``merge_topk_shards``
+are reached through ``repro_torch.kernels.ops``), but for the exact
+re-rank's margins, which a CUDA tensor takes from kernel 11
+(``kernels.margins``).  ``merge_topk_shards``
 is host numpy: the replicated-shard router (``serving.cluster``) merges
 its shards' lists with it.
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.functions import strict_fp32
+from repro_torch.kernels.margins import row_margins
 from repro_torch.utils.bits import from_numpy_u32, hamming_packed
 from repro_torch.utils.mesh import shard_count
 
@@ -402,42 +405,15 @@ def cutoff_exchange(hists, t: int):
             (below + take)[..., 0])
 
 
-def _segmented_rows(base_x, delta_x, split: int, rows):
-    """x[rows] over a row space stored as two segments: rows < split from
-    base_x, rows >= split from delta_x at row - split.  Both may carry
-    padding rows; out-of-range rows are clamped (their slots are invalid)."""
-    cb = base_x[torch.clamp(rows, 0, base_x.shape[0] - 1)]
-    cd = delta_x[torch.clamp(rows - split, 0, delta_x.shape[0] - 1)]
-    return torch.where((rows < split)[..., None], cb, cd)
-
-
-# the products' d axis is zero-padded to a multiple of this many floats
-# (32 bytes) before the sum: see _row_margins
-_ROW_ALIGN = 8
-
-
-def _margins(x, w_batch, rows):
-    """|w.x| / ||w|| for the gathered rows: multiply + reduce over d (not a
-    matmul), so a row's margin does not depend on the batch around it."""
-    return _row_margins(x[rows], w_batch)
-
-
-def _row_margins(cx, w_batch):
-    """|w.x| / ||w|| of gathered rows cx (B, C, d) against w_batch (B, d).
-
-    The CUDA sum over a contiguous axis longer than 128 loads it in
-    vectors from each row's own alignment, so rows that start at other
-    offsets mod 16 bytes (a d * 4-byte row stride that is no multiple of
-    16) would sum in other orders: a row's margin would depend on its
-    place among the candidates.  Zero-padding d to a multiple of
-    ``_ROW_ALIGN`` starts every row aligned; the added terms are +0.0."""
-    prod = cx * w_batch[:, None, :]
-    pad = -prod.shape[-1] % _ROW_ALIGN
-    if pad:
-        prod = torch.nn.functional.pad(prod, (0, pad))
-    m = torch.abs(torch.sum(prod, dim=-1))
-    return m / torch.clamp(torch.linalg.vector_norm(w_batch, dim=1,
-                                                    keepdim=True), min=1e-12)
+def _margins(x, w_batch, rows, valid, delta=None, split=None):
+    """The (B, C) margins |w.x| / ||w|| of the candidate rows, +inf at
+    invalid slots: ``kernels.margins.row_margins`` (kernel 11 on a CUDA
+    tensor, its plain multiply + reduce on the CPU; a row's margin does
+    not depend on the batch or the slots around it).  delta / split: the
+    two-segment row space of the LSM index."""
+    return row_margins(x, w_batch.contiguous(),
+                       rows.to(torch.int64).contiguous(),
+                       valid.contiguous(), delta=delta, split=split)
 
 
 def margin_rerank(x, w, candidates, l: int):
@@ -459,7 +435,7 @@ def margin_rerank_batch(x, w_batch, candidates, valid, l: int):
     """Batched exact re-rank: (margins (B, l), ids (B, l)) ascending by
     margin, ties to the lowest candidate position; invalid slots rank last
     with margin +inf and keep their padded id."""
-    m = torch.where(valid, _margins(x, w_batch, candidates), torch.inf)
+    m = _margins(x, w_batch, candidates, valid)
     m, sel = torch.sort(m, dim=1, stable=True)
     sel = sel[:, :min(l, candidates.shape[1])]
     return m[:, :sel.shape[1]], torch.gather(candidates, 1, sel)
@@ -468,12 +444,10 @@ def margin_rerank_batch(x, w_batch, candidates, valid, l: int):
 def margin_rerank_segmented(base_x, delta_x, split: int, w_batch,
                             candidates, valid, l: int):
     """``margin_rerank_batch`` over the LSM index's two-segment row space
-    (``_segmented_rows``): equal to it on the concatenation
+    (``kernels.margins._segmented_rows``): equal to it on the concatenation
     [base_x[:split]; delta_x[:rows - split]], since the gathered rows and
     the margin expression are the same."""
-    m = torch.where(valid, _row_margins(
-        _segmented_rows(base_x, delta_x, split, candidates), w_batch),
-        torch.inf)
+    m = _margins(base_x, w_batch, candidates, valid, delta_x, split)
     m, sel = torch.sort(m, dim=1, stable=True)
     sel = sel[:, :min(l, candidates.shape[1])]
     return m[:, :sel.shape[1]], torch.gather(candidates, 1, sel)
@@ -483,17 +457,14 @@ def margin_batch_segmented(base_x, delta_x, split: int, w_batch, candidates,
                            valid):
     """``margin_batch`` over the two-segment row space: (B, C) float32,
     +inf at invalid slots."""
-    return torch.where(valid, _row_margins(
-        _segmented_rows(base_x, delta_x, split, candidates), w_batch),
-        torch.inf)
+    return _margins(base_x, w_batch, candidates, valid, delta_x, split)
 
 
 def margin_batch(x, w_batch, candidates, valid):
     """Per-candidate exact margins with no selection: (B, C) float32,
-    +inf at invalid slots (candidates there may be -1: they are clamped
-    for the gather)."""
-    rows = torch.clamp(candidates, 0, x.shape[0] - 1)
-    return torch.where(valid, _margins(x, w_batch, rows), torch.inf)
+    +inf at invalid slots (candidates there may be -1: no row is read
+    for them)."""
+    return _margins(x, w_batch, candidates, valid)
 
 
 def merge_topk_shards(dists: list, ids: list, l: int):

@@ -37,7 +37,7 @@ import functools
 from collections import Counter
 
 from repro_torch.kernels import (_build, bilinear_hash, candidates, hamming,
-                                  lbh_grad, shard_select)
+                                  lbh_grad, margins, shard_select)
 
 MAX_SMEM = 232448            # bytes a block may opt into on sm_90
 MAX_GRID_X = 2 ** 31 - 1
@@ -382,6 +382,36 @@ def launch_shard_select(g: int, rows: int, n_valid: int, w: int, nq: int,
                    static_smem=2 * 8 * (SHARD_THREADS // 32))]
 
 
+# -- the re-rank's margins (csrc/row_margins.cu) ----------------------------
+
+MARGINS_NARROW_MAX = 4096        # widest row one warp sums
+MARGINS_WIDE_WARPS = 8           # warps a row past it
+MARGINS_NARROW_THREADS = 256     # a narrow block: 8 warps, 32 slots each
+MARGINS_WIDE_THREADS = 512
+MARGINS_WIDE_ROWS = 4            # slots a wide block takes
+MARGINS_STAGE_MAX = 57344        # widest w a block stages (224 KiB)
+# the norm's 16 warp partials and two rounds of 16 warp sums, float32
+MARGINS_SMEM = 4 * (16 + 2 * 16)
+
+
+def launch_row_margins(b: int, c: int, d: int) -> Launch:
+    """A block a query and a slab of its c slots: narrow rows (d <=
+    4,096) one warp a row and 256 slots a block, wide rows 8 warps a row
+    and 4 slots a block; w staged in dynamic shared memory up to d =
+    57,344."""
+    if b < 1 or c < 1 or d < 1:
+        raise ValueError(f"need b, c, d >= 1, got {b}, {c}, {d}")
+    narrow = d <= MARGINS_NARROW_MAX
+    slab = MARGINS_NARROW_THREADS if narrow else MARGINS_WIDE_ROWS
+    blocks = b * _cdiv(c, slab)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"{blocks} blocks for b {b}, c {c}")
+    return Launch("row_margins_kernel", (blocks, 1, 1),
+                  MARGINS_NARROW_THREADS if narrow else MARGINS_WIDE_THREADS,
+                  4 * d if d <= MARGINS_STAGE_MAX else 0,
+                  static_smem=MARGINS_SMEM)
+
+
 # static shared memory of each kernel's ptxas report (bytes)
 STATIC_SMEM = {"bilinear_hash_kernel": 0, "bh_seeded_product_kernel": 0,
                "bh_seeded_generate_kernel": 0, "lbh_chain_kernel":
@@ -391,7 +421,8 @@ STATIC_SMEM = {"bilinear_hash_kernel": 0, "bh_seeded_product_kernel": 0,
                "cand_lists_kernel": 4 * (LISTS_THREADS // 32),
                "shard_hist_kernel": 0,
                "shard_offsets_kernel": SHARD_OFFSET_SMEM,
-               "shard_select_kernel": 2 * 8 * (SHARD_THREADS // 32)}
+               "shard_select_kernel": 2 * 8 * (SHARD_THREADS // 32),
+               "row_margins_kernel": MARGINS_SMEM}
 
 
 # -- checks --------------------------------------------------------------------
@@ -428,6 +459,7 @@ _RECKON = {
     "lbh_chain": launch_lbh_chain,
     "cand_lists": launch_cand_lists,
     "shard_select": launch_shard_select,
+    "row_margins": launch_row_margins,
 }
 
 
@@ -477,6 +509,13 @@ def other_cases():
             (1, 5000, 4097, 32, 100, 4097)):
         yield Case("shard_select", f"g{g}-r{rows}-v{n_valid}-w{w}-b{nq}",
                    (g, rows, n_valid, w, nq, width))
+    # the three cells' shapes (tiny1m, news20, a card of the four-card
+    # cell), each side of the narrow / wide split and of staging w
+    for b, c, d in ((10, 6264, 385), (20, 201, 26_215), (10, 120_000, 385),
+                    (1, 1, 1), (3, 33, 65), (4096, 3, 385), (7, 5, 4096),
+                    (7, 5, 4097), (2, 9, 57_344), (2, 9, 57_345),
+                    (1, 70_000, 100_000)):
+        yield Case("row_margins", f"b{b}-c{c}-d{d}", (b, c, d))
 
 
 def sweep() -> list[tuple[Case, object]]:
@@ -525,6 +564,7 @@ _LIBRARY_SIGNATURES = {
     lbh_grad.LIBRARY: lbh_grad._SIGNATURES,
     candidates.LIBRARY: candidates._SIGNATURES,
     shard_select.LIBRARY: shard_select._SIGNATURES,
+    margins.LIBRARY: margins._SIGNATURES,
 }
 
 
@@ -549,7 +589,8 @@ def plan_export(case: Case) -> tuple[str, str, tuple]:
             "lbh_chain": (lbh_grad.LIBRARY, "lbh_chain_plan", a),
             "cand_lists": (candidates.LIBRARY, "cand_lists_plan", a),
             "shard_select": (shard_select.LIBRARY, "shard_select_plan",
-                             a)}[k]
+                             a),
+            "row_margins": (margins.LIBRARY, "row_margins_plan", a)}[k]
 
 
 def library_plan(case: Case):

@@ -18,6 +18,7 @@ from repro_torch.kernels import bilinear_hash as _bh
 from repro_torch.kernels import candidates as _cl
 from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import lbh_grad as _lbh
+from repro_torch.kernels import margins as _mg
 from repro_torch.kernels import shard_select as _ss
 from repro_torch.kernels.bilinear_hash import \
     bilinear_hash_seeded as _bilinear_hash_seeded
@@ -229,6 +230,15 @@ def shard_select_bound(n: int, w: int, b: int, selected: int, *,
                   h100.popc_s(sms, clock_hz))
 
 
+def row_margins_bound(candidates: int, d: int) -> Bound:
+    """Kernel 11: the margins of ``candidates`` valid candidate rows of d
+    float32 features, each row read once (candidates d 4 bytes); 2 d
+    multiply-adds a row at the float32 rate, far below it, so bytes bound
+    it.  The slots' ids, flags and margins (13 bytes a slot) are left
+    out, as the benchmark's ``rerank_bound`` leaves them."""
+    return _bound(candidates * d * 4, 2 * candidates * d, h100.FP32_FLOP_S)
+
+
 def load_libraries() -> None:
     """Build every kernel library not built yet (one nvcc per source, all
     started together) and load it, so that no first use falls inside a
@@ -236,7 +246,8 @@ def load_libraries() -> None:
     libs = {_bh.LIBRARY: _bh._SIGNATURES,
             _bh.FACTORS_LIBRARY: _bh._FACTORS_SIGNATURES,
             _lbh.LIBRARY: _lbh._SIGNATURES, _cl.LIBRARY: _cl._SIGNATURES,
-            _ss.LIBRARY: _ss._SIGNATURES, **_hm._SIGNATURES}
+            _ss.LIBRARY: _ss._SIGNATURES, _mg.LIBRARY: _mg._SIGNATURES,
+            **_hm._SIGNATURES}
     _build.build(list(libs))
     for name, signatures in libs.items():
         _build.load(name, signatures)

@@ -1,6 +1,6 @@
 """Plain oracles for the kernels, the near-zero bound that decides whether
-two hash results may differ in a bit, and the rounding bound of the LBH
-gradient chain."""
+two hash results may differ in a bit, the rounding bound of the LBH
+gradient chain, and the limit the re-rank's float32 margins are held to."""
 from __future__ import annotations
 
 import torch
@@ -97,3 +97,62 @@ def sign_flip_ratios(x, factors, codes_a, codes_b) -> torch.Tensor:
             r = ratio if r is None else torch.minimum(r, ratio)
         ratios[sel] = r
     return ratios
+
+
+def row_margins_limit(x, w, rows, valid, *, delta=None, split=None):
+    """The exact margins of ``kernels.margins.row_margins``' slots and the
+    limit a float32 evaluation of them is held to: (limit, margins), both
+    (B, C) float64; an invalid slot's margin +inf and its limit 0.  delta
+    and split as the kernel takes them.
+
+    limit = 4 u sqrt(d) (rms + m), u = 2^-24, rms = sqrt(sum_j (x_j
+    w_j)^2) / ||w||, m the margin.  A float32 sum of d terms that adds
+    them one after another (the order with the largest error) errs by
+    about u sqrt(d / 6) rms, so any float32 order lies some ten of its
+    standard deviations inside; the m term covers ||w||'s rounding.  A
+    product in TF32 or bf16 errs by ~2^-11 or ~2^-8 of rms, and a lost
+    partial by a share of m: at d 26,215 a typical slot's TF32 error is
+    about 2.5 times the limit, at d 385 some 30 times
+    (``row_margins_lossy``)."""
+    d = x.shape[1]
+    nw = torch.linalg.vector_norm(w.double(), dim=1)
+    limit, margins = [], []
+    for q in range(rows.shape[0]):
+        r = torch.where(valid[q], rows[q], 0)
+        cx = x[r.clamp(max=x.shape[0] - 1)]
+        if delta is not None:
+            cd = delta[(r - split).clamp(0, delta.shape[0] - 1)]
+            cx = torch.where((r < split)[:, None], cx, cd)
+        t = cx.double() * w[q].double()
+        m = t.sum(-1).abs() / nw[q]
+        rms = t.square().sum(-1).sqrt() / nw[q]
+        limit.append(torch.where(valid[q], 4 * 2.0 ** -24 * d ** 0.5
+                                 * (rms + m), 0.0))
+        margins.append(torch.where(valid[q], m, torch.inf))
+    return torch.stack(limit), torch.stack(margins)
+
+
+def row_margins_lossy(x, w, kind: str):
+    """Inputs on which the exact kernel gives what a faulty one would give
+    on x, w: ``tf32`` and ``bf16`` round both to that format (a product
+    in it, summed in float32); ``lost_partial`` zeroes the terms of one
+    row's first warp (d > 4,096: eight warps a row) or of its lane 0 (one
+    warp a row), as a sum that dropped that partial."""
+    if kind == "bf16":
+        return x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+    if kind == "tf32":
+        def tf32(t):      # round to nearest even at 10 mantissa bits
+            i = t.contiguous().view(torch.int32)
+            return ((i + 0x0FFF + ((i >> 13) & 1)) & -0x2000).view(
+                torch.float32)
+        return tf32(x), tf32(w)
+    if kind != "lost_partial":
+        raise ValueError(f"unknown kind {kind!r}")
+    from repro_torch.kernels import contracts
+    d = x.shape[1]
+    j = torch.arange(d, device=x.device)
+    lost = (j % 32 == 0 if d <= contracts.MARGINS_NARROW_MAX
+            else j % (32 * contracts.MARGINS_WIDE_WARPS) < 32)
+    x = x.clone()
+    x[:, lost] = 0.0
+    return x, w

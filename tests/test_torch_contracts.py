@@ -24,7 +24,7 @@ def test_the_sweep_holds_every_contract():
     assert kernels == {"hist", "hist_dma", "fused", "distance",
                        "distance_batch", "bilinear_hash",
                        "bilinear_hash_seeded", "lbh_chain", "cand_lists",
-                       "shard_select"}
+                       "shard_select", "row_margins"}
     assert len(cases) > 150
     assert C.run() == []
 
@@ -58,7 +58,7 @@ def test_every_case_names_a_declared_plan_export():
                        "topk_fused_plan", "distance_plan",
                        "distance_batch_plan", "bh_plan", "bh_seeded_plan",
                        "lbh_chain_plan", "cand_lists_plan",
-                       "shard_select_plan"}
+                       "shard_select_plan", "row_margins_plan"}
 
 
 def test_uint8_ceiling():

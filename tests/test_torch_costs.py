@@ -297,6 +297,18 @@ def test_candidate_lists_bound_is_its_bytes():
     assert bd.seconds == bd.bytes / h100.HBM_BYTES_S and bd.by == "bytes"
 
 
+@pytest.mark.parametrize("candidates, d", [(62_640, 385), (4_020, 26_215),
+                                           (1_172_368, 385)])
+def test_row_margins_bound_is_the_rows_read_once(candidates, d):
+    """Kernel 11 at the cells' shapes (tiny1m, news20, a card of the
+    four-card cell): every candidate row's d float32 read once; 2 d
+    multiply-adds a row, far below the float32 rate."""
+    bd = ops.row_margins_bound(candidates, d)
+    assert (bd.bytes, bd.operations) == (candidates * d * 4,
+                                         2 * candidates * d)
+    assert bd.seconds == bd.bytes / h100.HBM_BYTES_S and bd.by == "bytes"
+
+
 # -- the one-device step floor ------------------------------------------------
 
 @pytest.mark.parametrize("kind", ["decode", "prefill", "train"])

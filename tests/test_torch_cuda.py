@@ -685,8 +685,11 @@ def test_margins_do_not_depend_on_candidate_position(cuda, d):
     """A row's exact margin is the same wherever it sits among the
     candidates: the same rows gathered one slot further along (every row
     start moved by d floats) give bit-identical margins, as the router's
-    cross-shard re-rank needs."""
-    from repro_torch.core.search import margin_batch, margin_rerank_batch
+    cross-shard re-rank needs; and the same through the segmented
+    functions, with the rows from 300 on in the delta segment."""
+    from repro_torch.core.search import (margin_batch, margin_batch_segmented,
+                                         margin_rerank_batch,
+                                         margin_rerank_segmented)
     rng = np.random.default_rng(d)
     x = torch.from_numpy(rng.normal(size=(500, d)).astype(np.float32)).to(
         cuda)
@@ -694,15 +697,24 @@ def test_margins_do_not_depend_on_candidate_position(cuda, d):
         cuda)
     rows = torch.from_numpy(rng.integers(0, 500, (4, 37))).to(cuda)
     valid = torch.ones_like(rows, dtype=torch.bool)
+    base, delta = x[:300].contiguous(), x[300:].contiguous()
     m0 = margin_batch(x, w, rows, valid)
+    assert torch.equal(margin_batch_segmented(base, delta, 300, w, rows,
+                                              valid), m0)
     for shift in (1, 2, 3, 5):
         pad = torch.zeros((4, shift), dtype=rows.dtype, device=cuda)
-        m = margin_batch(x, w, torch.cat([pad, rows], 1),
-                         torch.cat([valid[:, :shift], valid], 1))
+        moved = torch.cat([pad, rows], 1)
+        v = torch.cat([valid[:, :shift], valid], 1)
+        m = margin_batch(x, w, moved, v)
+        assert torch.equal(m[:, shift:], m0)
+        m = margin_batch_segmented(base, delta, 300, w, moved, v)
         assert torch.equal(m[:, shift:], m0)
     top_m, top_i = margin_rerank_batch(x, w, rows, valid, 37)
-    assert torch.equal(top_m, torch.gather(m0, 1, torch.argsort(
-        m0, dim=1, stable=True)))
+    want = torch.gather(m0, 1, torch.argsort(m0, dim=1, stable=True))
+    assert torch.equal(top_m, want)
+    seg_m, seg_i = margin_rerank_segmented(base, delta, 300, w, rows, valid,
+                                           37)
+    assert torch.equal(seg_m, want) and torch.equal(seg_i, top_i)
 
 
 @pytest.mark.parametrize("pack", ["none", "16", "8"])
