@@ -23,7 +23,11 @@ merge through the lexicographic (distance, id) contract
 monolithic index over the same live rows, tie order and l > n sentinels
 included.  That holds because row order always equals stable-id order
 (base rows keep their relative order across compactions; delta ids are
-assigned later, hence larger).
+assigned later, hence larger).  The merged top-l is answered as the
+monolithic index answers its scan (``multi_table.answer_slots``: kernel
+9's lists from a device row -> stable id map, the segmented re-rank, one
+read-back a micro-batch, the spans ``index.union`` / ``rerank`` /
+``readback``).
 
 Incremental compaction: past the delta / dead-fraction thresholds the
 index freezes the delta and folds base + frozen delta into a new base,
@@ -54,6 +58,7 @@ to the single-device scan's.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 
@@ -71,7 +76,9 @@ from repro_torch.core.search import (DIST_SENTINEL, drop_tombstones_topk,
 from repro_torch.core.tables import SingleHashTable
 from repro_torch.kernels import ops
 from repro_torch.serving import batch_query as bq
-from repro_torch.serving.multi_table import BatchQueryResult, MultiTableIndex
+from repro_torch.serving.multi_table import (BatchQueryResult,
+                                             MultiTableIndex, answer_slots,
+                                             empty_answer)
 from repro_torch.utils.bits import to_numpy_u32
 from repro_torch.utils.mesh import shard_count
 
@@ -159,6 +166,7 @@ class LSMMultiTableIndex(MultiTableIndex):
         "_delta_codes_dev": "_lock", "_delta_x_dev": "_lock",
         "_delta_active_dev": "_lock", "_delta_key": "_lock",
         "_x_dev": "_lock", "_x_dev_key": "_lock",
+        "_id_map_dev": "_lock", "_id_map_key": "_lock",
         # compaction state, counters, hash families and probe tables
         "_c": "_lock", "delta_uploads": "_lock",
         "families": "_lock", "tables": "_lock",
@@ -203,6 +211,7 @@ class LSMMultiTableIndex(MultiTableIndex):
         self._delta_x_dev = None
         self._delta_active_dev = None
         self._delta_key = None
+        self._id_map_dev = self._id_map_key = None   # row -> stable id
         self._x_dev_key = None          # the full-copy `x` property
         self._c: _Compaction | None = None
         self._compactor: threading.Thread | None = None
@@ -658,6 +667,10 @@ class LSMMultiTableIndex(MultiTableIndex):
                 self._base_x_key = self._base_version
             else:
                 self._base_x_dev, self._base_x_key = None, None
+            self._id_map_dev, self._id_map_key = (   # keep its base part
+                (shadow._id_map_dev, (self._base_version, None))
+                if (shadow._id_map_key or (None,))[0] == shadow._base_version
+                else (None, None))
             if (shadow._delta_key == shadow._delta_version
                     and shadow._rows > shadow._base_len):
                 self._delta_codes_dev = shadow._delta_codes_dev
@@ -792,15 +805,31 @@ class LSMMultiTableIndex(MultiTableIndex):
         return (self._delta_codes_dev, self._delta_x_dev,
                 self._delta_active_dev)
 
+    def _id_map_state(self):
+        # lock held by caller; (rows,) int64 row -> stable id for kernel 9:
+        # the base's part crosses once a base version (later maps keep it),
+        # the delta's when the delta does; not counted among the uploads
+        key = (self._base_version, self._delta_version)
+        if self._id_map_key != key:
+            split, rows = self._base_len, self._rows
+            base = (self._id_map_dev[:split]
+                    if (self._id_map_key or (None,))[0] == self._base_version
+                    else self._padded(self._ids_buf[:split], split))
+            self._id_map_dev = torch.cat([base, self._padded(
+                self._ids_buf[split:rows], rows - split)])
+            self._id_map_key = key
+        return self._id_map_dev
+
     def upload_base(self) -> None:
-        """Put the base segment's device state (codes, liveness, features)
-        on the device now, so that the next scan does not pay the upload
-        inside its call."""
+        """Put the base segment's device state (codes, liveness, features,
+        stable ids) on the device now, so that the next scan does not pay
+        the upload inside its call."""
         with self._lock:
             if self._base_len:
                 self._base_codes_state()
                 self._base_active_state()
                 self._base_x_state()
+                self._id_map_state()
 
     # -- probe path ----------------------------------------------------------
 
@@ -827,28 +856,28 @@ class LSMMultiTableIndex(MultiTableIndex):
         nonempty = valid.any(axis=1)
         w = np.atleast_2d(np.asarray(w, np.float32))
         with self._lock:
-            split = self._base_len
-            delta_len = self._rows - split
-            base_x = self._base_x_state() if split else None
-            delta_x = self._delta_state()[1] if delta_len else None
+            rerank = self._on_features(margin_rerank_batch,
+                                       margin_rerank_segmented)
         dev = self.device
-        margins, top = self._rerank_dev(
-            bq.as_float_tensor(w, dev), torch.from_numpy(ids).to(dev),
-            torch.from_numpy(valid).to(dev), l, base_x, delta_x, split)
+        margins, top = rerank(bq.as_float_tensor(w, dev),
+                              torch.from_numpy(ids).to(dev),
+                              torch.from_numpy(valid).to(dev), l)
         margins = margins.cpu().numpy()
         top = top.cpu().numpy().astype(np.int64)
         top[~np.isfinite(margins)] = -1
         return top, margins, nonempty
 
-    @staticmethod
-    def _rerank_dev(w_dev, rows_dev, valid_dev, l, base_x, delta_x,
-                    split: int):
-        if delta_x is None:
-            return margin_rerank_batch(base_x, w_dev, rows_dev, valid_dev, l)
-        if base_x is None:
-            return margin_rerank_batch(delta_x, w_dev, rows_dev, valid_dev, l)
-        return margin_rerank_segmented(base_x, delta_x, split, w_dev,
-                                       rows_dev, valid_dev, l)
+    def _on_features(self, one, two):
+        # lock held by caller.  core.search's margin function one (x, ...)
+        # over the features of the one segment with rows, or its segmented
+        # form two (base_x, delta_x, split, ...) over both; global rows
+        split = self._base_len
+        base_x = self._base_x_state() if split else None
+        delta_x = self._delta_state()[1] if self._rows > split else None
+        if base_x is None or delta_x is None:
+            return functools.partial(one, base_x if delta_x is None
+                                     else delta_x)
+        return functools.partial(two, base_x, delta_x, split)
 
     def query_batch(self, w, mask=None, l: int = 1) -> BatchQueryResult:
         with self._lock:
@@ -900,9 +929,10 @@ class LSMMultiTableIndex(MultiTableIndex):
             split, rows = self._base_len, self._rows
             if not self._active_buf[:rows].any():
                 return None
-            snap = dict(split=split, rows=rows, ids=self.ids_np,
-                        base_x=self._base_x_state() if split else None,
-                        delta_x=None)
+            snap = dict(rows=rows, ids=self.ids_np,
+                        id_map=self._id_map_state(),
+                        rerank=self._on_features(margin_rerank_batch,
+                                                 margin_rerank_segmented))
             # tombstones in the base: only the sharded scan needs them
             dead = (split - int(self._active_buf[:split].sum())
                     if split and mesh is not None else 0)
@@ -919,7 +949,7 @@ class LSMMultiTableIndex(MultiTableIndex):
         elif base is not None:
             d_m, i_m = self._scan_segment(base[0], qcodes, l, base[1], True)
         if delta is not None:
-            codes_d, snap["delta_x"], active_d = delta
+            codes_d, _, active_d = delta
             fused = rows - split >= self.config.lsm_delta_fused_rows
             d_d, i_d = self._scan_segment(codes_d, qcodes, l, active_d, fused)
             i_d = torch.where(i_d < 0, -1, i_d + split)   # to global rows
@@ -934,61 +964,22 @@ class LSMMultiTableIndex(MultiTableIndex):
                          ) -> BatchQueryResult:
         """Two-segment fused scan (the parent's l / topk / mask / mesh
         contract): both segments scanned and merged through
-        merge_topk_segments, then the device-side union and the segmented
+        merge_topk_segments (``_scan_segments``), then the monolithic
+        index's answer stage (``multi_table.answer_slots``: union, kernel
+        9's lists, one read-back) over global rows, with the segmented
         exact re-rank."""
         if mesh is not None:
             shard_count(mesh, shard_axis)
         self._require_fit("query_scan_batch")
         w = np.atleast_2d(np.asarray(w, np.float32))
-        b = w.shape[0]
-        t0 = time.perf_counter()
         scanned = self._scan_segments(w, l, mesh, shard_axis)
         if scanned is None:
-            ids_pad = np.full((b, topk), -1, np.int64)
-            m_pad = np.full((b, topk), np.inf, np.float32)
-            return BatchQueryResult(
-                np.full(b, -1, np.int64), np.full(b, np.inf, np.float32),
-                np.zeros(b, dtype=bool),
-                [np.empty(0, np.int64) for _ in range(b)],
-                time.perf_counter() - t0, 0.0,
-                np.zeros(self.num_tables, dtype=np.int64),
-                ids_topk=ids_pad if topk > 1 else None,
-                margins_topk=m_pad if topk > 1 else None)
+            return empty_answer(w.shape[0], topk, self.num_tables)
         snap, _, i_m = scanned
-        ids_view, dev = snap["ids"], self.device
-        # the monolithic index's union and dedup over global rows: row
-        # order is stable-id order
-        flat = torch.sort(i_m.permute(1, 0, 2).reshape(b, -1), dim=1).values
-        uniq = flat >= 0
-        uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
-        grows = torch.clamp(flat, 0, snap["rows"] - 1).long()
-        valid = uniq if mask is None else uniq & torch.from_numpy(
-            np.asarray(mask, dtype=bool)[ids_view]).to(dev)[grows]
-        lookup_s = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        margins, top = self._rerank_dev(
-            bq.as_float_tensor(w, dev), grows, valid, topk, snap["base_x"],
-            snap["delta_x"], snap["split"])
-        margins = margins.cpu().numpy()
-        top = top.cpu().numpy().astype(np.int64)
-        top[~np.isfinite(margins)] = -1
-        if margins.shape[1] < topk:   # topk > L*l candidates: pad, not clip
-            padw = ((0, 0), (0, topk - margins.shape[1]))
-            margins = np.pad(margins, padw, constant_values=np.inf)
-            top = np.pad(top, padw, constant_values=-1)
-        top_ids = np.where(top >= 0, ids_view[np.clip(top, 0, None)], -1)
-        hits = (i_m >= 0).sum(dim=(1, 2)).cpu().numpy().astype(np.int64)
-        grows_np = grows.cpu().numpy()
-        uniq_np, valid_np = uniq.cpu().numpy(), valid.cpu().numpy()
-        cands = [ids_view[grows_np[i, uniq_np[i]]] for i in range(b)]
-        rerank_s = time.perf_counter() - t0
+        res = answer_slots(w, i_m, topk, mask, self.device, snap["id_map"],
+                           snap["ids"], snap["rerank"])
         self._maybe_compact()
-        return BatchQueryResult(
-            top_ids[:, 0], margins[:, 0], valid_np.any(axis=1), cands,
-            lookup_s, rerank_s, hits,
-            ids_topk=top_ids if topk > 1 else None,
-            margins_topk=margins if topk > 1 else None)
+        return res
 
     def scan_table_topk(self, w, l: int = 16, mesh=None,
                         shard_axis: str = "data"
@@ -1019,10 +1010,7 @@ class LSMMultiTableIndex(MultiTableIndex):
         w = np.atleast_2d(np.asarray(w, np.float32))
         cand_ids = np.asarray(cand_ids, dtype=np.int64)
         with self._lock:
-            split = self._base_len
-            delta_len = self._rows - split
-            base_x = self._base_x_state() if split else None
-            delta_x = self._delta_state()[1] if delta_len else None
+            margins = self._on_features(margin_batch, margin_batch_segmented)
             next_id = self._next_id
             row_of = self._row_of          # old buffers stay valid views
         known = (cand_ids >= 0) & (cand_ids < next_id)
@@ -1031,17 +1019,9 @@ class LSMMultiTableIndex(MultiTableIndex):
         valid = known & (rows >= 0)
         rows[~valid] = 0
         dev = self.device
-        w_dev = bq.as_float_tensor(w, dev)
-        rows_dev = torch.from_numpy(rows).to(dev)
-        valid_dev = torch.from_numpy(valid).to(dev)
-        if delta_x is None:
-            m = margin_batch(base_x, w_dev, rows_dev, valid_dev)
-        elif base_x is None:
-            m = margin_batch(delta_x, w_dev, rows_dev, valid_dev)
-        else:
-            m = margin_batch_segmented(base_x, delta_x, split, w_dev,
-                                       rows_dev, valid_dev)
-        return m.cpu().numpy()
+        return margins(bq.as_float_tensor(w, dev),
+                       torch.from_numpy(rows).to(dev),
+                       torch.from_numpy(valid).to(dev)).cpu().numpy()
 
     # -- counters ------------------------------------------------------------
 

@@ -22,8 +22,9 @@ mesh's devices, no whole copy anywhere, and answers through the scan path
 by the cutoff exchange (``core.search.cutoff_exchange``), each shard
 re-ranking its own candidates; it takes no mutation and has no probe
 path.
-``serving.lsm.LSMMultiTableIndex`` overrides the build,
-mutation, lookup, re-rank and scan methods here for streaming ingest.
+``serving.lsm.LSMMultiTableIndex`` overrides the build, mutation,
+lookup, re-rank and scan methods here for streaming ingest, and answers
+its scans through this module's ``answer_slots``.
 """
 from __future__ import annotations
 
@@ -55,8 +56,8 @@ class BatchQueryResult:
     margins: np.ndarray      # (B,) f32
     nonempty: np.ndarray     # (B,) bool — any candidate survived the lookup?
     candidates: list[np.ndarray]  # per-query short-lists (union over tables)
-    lookup_s: float          # probe path; 0 on the scan path (its spans
-    rerank_s: float          # time it: ``utils.trace``)
+    lookup_s: float          # probe path; 0 on either index's scan path
+    rerank_s: float          # (its spans time it: ``utils.trace``)
     table_hits: np.ndarray   # (L,) per-table yield: probe path = bucket
                              # candidates found; scan path = scanned top-l
                              # slots holding a live row
@@ -122,6 +123,59 @@ def _scan_answers(margins: np.ndarray, ids: np.ndarray, hits: np.ndarray,
         [lists[i, :k] for i, k in enumerate(counts)], 0.0, 0.0, hits,
         ids_topk=ids if topk > 1 else None,
         margins_topk=margins if topk > 1 else None)
+
+
+def empty_answer(b: int, topk: int, tables: int) -> BatchQueryResult:
+    """The scan path's answer for b queries to an index with no live row."""
+    ids_pad = np.full((b, topk), -1, np.int64)
+    m_pad = np.full((b, topk), np.inf, np.float32)
+    return BatchQueryResult(
+        np.full(b, -1, np.int64), np.full(b, np.inf, np.float32),
+        np.zeros(b, dtype=bool), [np.empty(0, np.int64) for _ in range(b)],
+        0.0, 0.0, np.zeros(tables, dtype=np.int64),
+        ids_topk=ids_pad if topk > 1 else None,
+        margins_topk=m_pad if topk > 1 else None)
+
+
+def answer_slots(w, idx: torch.Tensor, topk: int, mask, device, id_map,
+                 row_ids: np.ndarray, rerank, row_of=None
+                 ) -> BatchQueryResult:
+    """``MultiTableIndex.answer_from_scan`` for both indexes' single-device
+    scans, over positions idx (L, B, l), -1 in an empty slot.  Each index
+    gives what differs: row_of (n,) a position's row on the device (None:
+    the position is the row), id_map (n,) its stable id on the device,
+    row_ids the host's row -> stable id array (mask is over ids), and
+    rerank(w_dev, rows, valid, topk) -> (margins, rows) over its features."""
+    w = np.atleast_2d(np.asarray(w, np.float32))
+    b = w.shape[0]
+    n = id_map.shape[0]
+    with trace.span("index.union", entry=True, exit=True) as union:
+        # per query, sort the L·l positions and invalidate repeats and
+        # empty (-1) slots
+        flat = idx.permute(1, 0, 2).reshape(b, -1)
+        flat = torch.sort(flat, dim=1).values
+        uniq = flat >= 0
+        uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
+        grows = torch.clamp(flat, 0, n - 1).long()
+        if row_of is not None:
+            grows = row_of[grows]
+        # mask narrows answers and re-rank, not the reported short-lists
+        valid = uniq if mask is None else (uniq & torch.from_numpy(
+            np.asarray(mask, dtype=bool)[row_ids]).to(device)[grows])
+        hits = (idx >= 0).sum(dim=(1, 2))
+        # (B, L·l + 2): the unique candidates as stable ids, then the
+        # count and whether any slot is valid
+        lists = candidate_lists(flat, valid, id_map)
+    with trace.span("index.rerank", entry=union, exit=True) as ranked:
+        margins, top = rerank(bq.as_float_tensor(w, device), grows, valid,
+                              topk)
+    # its entry, the re-rank's exit, follows all of the batch's device work
+    with trace.span("index.readback", entry=ranked):
+        margins, top, hits, lists = _read_back(device, margins, top, hits,
+                                               lists)
+        # top holds rows, the padding's too
+        return _scan_answers(margins, row_ids[top], hits, lists,
+                             flat.shape[1], topk)
 
 
 def _shard_mask(mask_rows: np.ndarray, start: int, valid: int, rows: int,
@@ -571,17 +625,8 @@ class MultiTableIndex:
                                  f"not {mesh} along {shard_axis!r}")
             return self._scan_sharded_rows(w, l, topk, mask)
         w = np.atleast_2d(np.asarray(w, np.float32))
-        b = w.shape[0]
         if not self.active.any():
-            ids_pad = np.full((b, topk), -1, np.int64)
-            m_pad = np.full((b, topk), np.inf, np.float32)
-            return BatchQueryResult(
-                np.full(b, -1, np.int64), np.full(b, np.inf, np.float32),
-                np.zeros(b, dtype=bool),
-                [np.empty(0, np.int64) for _ in range(b)], 0.0, 0.0,
-                np.zeros(self.num_tables, dtype=np.int64),
-                ids_topk=ids_pad if topk > 1 else None,
-                margins_topk=m_pad if topk > 1 else None)
+            return empty_answer(w.shape[0], topk, self.num_tables)
         _, idx = self._scan(w, l, mesh, shard_axis)
         return self.answer_from_scan(w, idx, topk, mask)
 
@@ -601,40 +646,13 @@ class MultiTableIndex:
         (counts ``reads``, one per blocking read, and ``candidates``, the
         unique candidates of the batch's queries; mark ``first_read``)."""
         self._whole_rows("answer_from_scan")
-        w = np.atleast_2d(np.asarray(w, np.float32))
-        b = w.shape[0]
         if self._codes_dev is None:
             self._scan_state()
-        live_rows_dev = self._live_rows_dev     # any layout's: same rows
-        n_live = self._live_rows.shape[0]
-        with trace.span("index.union", entry=True, exit=True) as union:
-            # per query, sort the L·l live-row ids and invalidate repeats
-            # and empty (-1) slots
-            flat = idx.permute(1, 0, 2).reshape(b, -1)
-            flat = torch.sort(flat, dim=1).values
-            uniq = flat >= 0
-            uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
-            grows = live_rows_dev[torch.clamp(flat, 0, n_live - 1).long()]
-            # mask narrows answers and re-rank, not the reported short-lists
-            mask_rows = self.mask_to_rows(mask)
-            valid = uniq if mask_rows is None else (
-                uniq & torch.from_numpy(mask_rows).to(self.device)[grows])
-            hits = (idx >= 0).sum(dim=(1, 2))
-            # (B, L·l + 2): the unique candidates as stable ids, then the
-            # count and whether any slot is valid
-            lists = candidate_lists(flat, valid, self._ids_dev)
-        with trace.span("index.rerank", entry=union, exit=True) as rerank:
-            margins, top = margin_rerank_batch(
-                self.x, bq.as_float_tensor(w, self.device), grows, valid,
-                topk)
-        # its entry, the re-rank's exit, follows all of the batch's device
-        # work
-        with trace.span("index.readback", entry=rerank):
-            margins, top, hits, lists = _read_back(self.device, margins, top,
-                                                   hits, lists)
-            # top holds live rows, the padding's too
-            return _scan_answers(margins, self.ids_np[top], hits, lists,
-                                 flat.shape[1], topk)
+        return answer_slots(
+            w, idx, topk, mask, self.device, self._ids_dev, self.ids_np,
+            lambda w_dev, rows, valid, k: margin_rerank_batch(
+                self.x, w_dev, rows, valid, k),
+            row_of=self._live_rows_dev)     # any layout's: same rows
 
     def _scan_sharded_rows(self, w, l: int, topk: int, mask
                            ) -> BatchQueryResult:

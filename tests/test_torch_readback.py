@@ -1,10 +1,12 @@
-"""The scan path's read-back (``MultiTableIndex.answer_from_scan``): its
-result equals, field by field, one built the way the JAX package builds
-it (the union's rows read back and each query's list translated to
-stable ids on the host), over one and four tables, scan depths past the
-live rows, masks, topk past L·l, mutations and the row-sharded scan; a
-batch's arrays stay as they were after later batches; one blocking read
-a micro-batch.  ``kernels.candidates``' plain version is held to its
+"""The scan path's read-back (``MultiTableIndex.answer_from_scan``, and
+``multi_table.answer_slots`` under it, which the LSM index answers
+through too): its result equals, field by field, one built the way the
+JAX package builds it (the union's rows read back and each query's list
+translated to stable ids on the host), over one and four tables, scan
+depths past the live rows, masks, topk past L·l, mutations and the
+row-sharded scan; the LSM index's equals its own old answer path's in
+each of its segment states; a batch's arrays stay as they were after
+later batches; one blocking read a micro-batch.  ``kernels.candidates``' plain version is held to its
 definition here and to the CUDA kernel on a card (tests marked ``cuda``
 skip without one; ``pytest -m cuda tests/test_torch_readback.py``)."""
 import dataclasses
@@ -18,6 +20,7 @@ from repro_torch.core.indexer import IndexConfig  # noqa: E402
 from repro_torch.core.search import margin_rerank_batch  # noqa: E402
 from repro_torch.kernels import candidates as cl  # noqa: E402
 from repro_torch.serving import batch_query as bq  # noqa: E402
+from repro_torch.serving.lsm import LSMMultiTableIndex  # noqa: E402
 from repro_torch.serving.multi_table import (BatchQueryResult,  # noqa: E402
                                              MultiTableIndex)
 from repro_torch.serving.service import HashQueryService  # noqa: E402
@@ -36,6 +39,26 @@ def _index(n, tables, device="cpu", seed=5):
 
 def _queries(b, seed=9):
     return np.random.default_rng(seed).normal(size=(b, D)).astype(np.float32)
+
+
+def _lsm(n, tables, device="cpu", seed=5, fused_rows=4096):
+    """An LSM index whose n rows are its base; compaction only when asked."""
+    x = np.random.default_rng(seed).normal(size=(n, D)).astype(np.float32)
+    return LSMMultiTableIndex(
+        IndexConfig(method="bh", bits=12, tables=tables, seed=seed,
+                    compact_threshold=None, lsm_auto=False,
+                    lsm_delta_fused_rows=fused_rows), device=device).fit(x)
+
+
+def _make(kind, n, tables, device="cpu"):
+    """A monolithic index over n rows, or an LSM index holding n rows as a
+    base and a delta, with tombstones in both."""
+    if kind == "monolithic":
+        return _index(n, tables, device)
+    index = _lsm(n - n // 8, tables, device)
+    index.insert(_queries(n // 8, seed=7))
+    index.delete(index.ids_np[::9])
+    return index
 
 
 def _old_answer(index, w, idx, topk=1, mask=None) -> BatchQueryResult:
@@ -71,6 +94,41 @@ def _old_answer(index, w, idx, topk=1, mask=None) -> BatchQueryResult:
         margins_topk=margins if topk > 1 else None)
 
 
+def _old_lsm_answer(index, w, i_m, topk=1, mask=None) -> BatchQueryResult:
+    """The LSM index's answer path before it shared the monolithic one,
+    over a merged two-segment scan result i_m (L, B, l) of global rows:
+    six arrays read back, each query's list built on the host; its
+    segmented re-rank stands here as the re-rank over the whole rows
+    (``index.x``), which it equals."""
+    w = np.atleast_2d(np.asarray(w, np.float32))
+    b = w.shape[0]
+    ids_view, dev = index.ids_np, index.device
+    flat = torch.sort(i_m.permute(1, 0, 2).reshape(b, -1), dim=1).values
+    uniq = flat >= 0
+    uniq[:, 1:] &= flat[:, 1:] != flat[:, :-1]
+    grows = torch.clamp(flat, 0, ids_view.shape[0] - 1).long()
+    valid = uniq if mask is None else uniq & torch.from_numpy(
+        np.asarray(mask, dtype=bool)[ids_view]).to(dev)[grows]
+    margins, top = margin_rerank_batch(
+        index.x, bq.as_float_tensor(w, dev), grows, valid, topk)
+    margins = margins.cpu().numpy()
+    top = top.cpu().numpy().astype(np.int64)
+    top[~np.isfinite(margins)] = -1
+    if margins.shape[1] < topk:
+        padw = ((0, 0), (0, topk - margins.shape[1]))
+        margins = np.pad(margins, padw, constant_values=np.inf)
+        top = np.pad(top, padw, constant_values=-1)
+    top_ids = np.where(top >= 0, ids_view[np.clip(top, 0, None)], -1)
+    hits = (i_m >= 0).sum(dim=(1, 2)).cpu().numpy().astype(np.int64)
+    grows_np = grows.cpu().numpy()
+    uniq_np, valid_np = uniq.cpu().numpy(), valid.cpu().numpy()
+    cands = [ids_view[grows_np[i, uniq_np[i]]] for i in range(b)]
+    return BatchQueryResult(
+        top_ids[:, 0], margins[:, 0], valid_np.any(axis=1), cands, 0.0, 0.0,
+        hits, ids_topk=top_ids if topk > 1 else None,
+        margins_topk=margins if topk > 1 else None)
+
+
 def _assert_same(got: BatchQueryResult, want: BatchQueryResult):
     for f in dataclasses.fields(BatchQueryResult):
         a, b = getattr(got, f.name), getattr(want, f.name)
@@ -95,6 +153,15 @@ def _check(index, w, l, topk=1, mask=None, mesh=None):
     _assert_same(got, want)
     _assert_same(index.query_scan_batch(w, l=l, topk=topk, mask=mask,
                                         mesh=mesh), want)
+    return got
+
+
+def _check_lsm(index, w, l, topk=1, mask=None):
+    """An LSM index's query_scan_batch against its old answer path on the
+    same two-segment scan."""
+    _, _, i_m = index._scan_segments(np.atleast_2d(w), l)
+    got = index.query_scan_batch(w, l=l, topk=topk, mask=mask)
+    _assert_same(got, _old_lsm_answer(index, w, i_m, topk, mask))
     return got
 
 
@@ -156,8 +223,70 @@ def test_the_row_sharded_scan(shards):
     _check(index, _queries(5), 36, topk=3, mesh=mesh)
 
 
-def test_a_batch_keeps_its_arrays_after_later_batches():
-    index = _index(800, 2)
+def _lsm_states(index):
+    """Drive an LSM index through its segment states, naming each."""
+    yield "base only"
+    index.insert(_queries(80, seed=11))
+    yield "base and delta"
+    index.delete(np.concatenate([np.arange(0, 600, 4), index.ids_np[-80::3]]))
+    yield "tombstones in both"
+    assert index.begin_compaction()
+    index.compaction_step(max_rows=200)
+    index.insert(_queries(30, seed=12))
+    index.delete(index.ids_np[index.active][1::7])
+    seg = index.segments()
+    assert seg["compaction_active"] and seg["frozen_rows"] > 0
+    yield "mid-compaction"
+    index.compact()
+    assert not index.segments()["compaction_active"]
+    yield "after compact"
+    index.compact()
+    assert index.segments()["delta_rows"] == 0
+    yield "folded"
+
+
+@pytest.mark.parametrize("tables", [1, 4])
+@pytest.mark.parametrize("fused_rows", [16, 1 << 20])
+def test_the_lsm_answers_through_the_shared_path(tables, fused_rows):
+    """Every field as the LSM's old answer path gave it, in each state,
+    with the delta scanned past and below ``lsm_delta_fused_rows``: a
+    mask, l past the live rows, topk past L·l."""
+    index = _lsm(600, tables, fused_rows=fused_rows)
+    w = _queries(6)
+    mask = np.random.default_rng(3).random(1000) < 0.4
+    for state in _lsm_states(index):
+        res = _check_lsm(index, w, 40, topk=3)
+        assert all(c.size > 0 for c in res.candidates), state
+        live = _check_lsm(index, w, 32, topk=2, mask=mask).ids
+        assert mask[live[live >= 0]].all(), state
+        res = _check_lsm(index, w, 1024, topk=3)
+        assert all(c.size == index.n for c in res.candidates), state
+        _check_lsm(index, _queries(3, seed=2), 8, topk=tables * 8 + 5)
+
+
+@pytest.mark.parametrize("cls", [MultiTableIndex, LSMMultiTableIndex])
+def test_an_index_with_no_live_row(cls):
+    """Both indexes give the one empty answer, with no host timer."""
+    index = cls(IndexConfig(method="bh", bits=12, tables=3, seed=5,
+                            compact_threshold=None), device="cpu")
+    index.fit(_queries(50, seed=4))
+    index.delete(np.arange(50))
+    for topk in (1, 4):
+        res = index.query_scan_batch(_queries(5), l=8, topk=topk)
+        assert (res.ids == -1).all() and np.isinf(res.margins).all()
+        assert not res.nonempty.any() and res.lookup_s == res.rerank_s == 0
+        assert [c.size for c in res.candidates] == [0] * 5
+        assert np.array_equal(res.table_hits, np.zeros(3, np.int64))
+        assert (res.ids_topk is None) == (topk == 1)
+        if topk > 1:
+            assert res.ids_topk.shape == (5, topk)
+            assert (res.ids_topk == -1).all()
+            assert np.isinf(res.margins_topk).all()
+
+
+@pytest.mark.parametrize("kind", ["monolithic", "lsm"])
+def test_a_batch_keeps_its_arrays_after_later_batches(kind):
+    index = _make(kind, 800, 2)
     first = index.query_scan_batch(_queries(6), l=40, topk=3)
     kept = [c.copy() for c in first.candidates]
     ids, margins = first.ids_topk.copy(), first.margins_topk.copy()
@@ -168,8 +297,9 @@ def test_a_batch_keeps_its_arrays_after_later_batches():
     assert np.array_equal(first.margins_topk, margins)
 
 
-def test_one_read_a_micro_batch():
-    index = _index(800, 2)
+@pytest.mark.parametrize("kind", ["monolithic", "lsm"])
+def test_one_read_a_micro_batch(kind):
+    index = _make(kind, 800, 2)
     service = HashQueryService(index, mode="scan", scan_l=32, max_batch=4)
     with trace.session() as sess:
         res = service.query_batch(_queries(10))
@@ -262,14 +392,17 @@ def test_lists_kernel_with_no_slots(cuda, b, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["monolithic", "lsm"])
 @pytest.mark.parametrize("tables", [1, 4])
-def test_the_read_back_on_the_card(cuda, tables):
-    index = _index(3000, tables, device=cuda)
+def test_the_read_back_on_the_card(cuda, tables, kind):
+    index = _make(kind, 3000, tables, device=cuda)
     mask = np.random.default_rng(6).random(3000) < 0.5
+    # answer_from_scan and query_scan_batch; the LSM's reference has none
+    check, launches = (_check, 2) if kind == "monolithic" else (_check_lsm, 1)
     for topk, m in ((1, None), (3, mask), (tables * 64 + 5, None)):
         before = cl.candidate_lists.launches
-        _check(index, _queries(10), 64, topk, m)
-        assert cl.candidate_lists.launches == before + 2
+        check(index, _queries(10), 64, topk, m)
+        assert cl.candidate_lists.launches == before + launches
     first = index.query_scan_batch(_queries(10), l=64, topk=3)
     kept = [c.copy() for c in first.candidates]
     ids = first.ids_topk.copy()
