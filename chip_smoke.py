@@ -5,7 +5,9 @@
 
 Run from the repository root.  It builds the port's eleven CUDA kernels
 (nine libraries) from ``src/repro_torch/kernels/csrc``, holds each against
-its plain PyTorch version at the shapes its path gives it, then drives four
+its plain PyTorch version at the shapes its path gives it (the seeded hash
+also at the two one-card benchmark cells' query micro-batches, where its
+product takes the chain plan, timed beside its bound), then drives four
 paths at full size on the Tiny-1M geometry (1,060,000 x 385 float32
 features, 10 classes, from ``--seed``):
 
@@ -882,6 +884,74 @@ def row_margins_phase(dev, shapes=None) -> dict:
                 replaces=None, max_abs_err=err, ms=first["ms"],
                 plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
                 bound_by=first["bound_by"], library_ms=None, shapes=out)
+
+
+# the query micro-batches of the benchmark's one-card cells (label, rows,
+# d, k, tables): news20's 20 normals of 26,215 features at 16 bits and
+# tiny1m's 10 of 385 at 20 bits, one table each
+QUERY_HASH_SHAPES = (("news20", 20, 26215, 16, 1), ("tiny1m", 10, 385, 20, 1))
+QUERY_HASH_REPS = 200
+QUERY_HASH_BATCH = 4096   # rows of a batch that a tile fills
+
+
+def query_hash_phase(dev, shapes=None) -> dict:
+    """Kernel 1 (``bilinear_hash_seeded``) at the one-card cells' query
+    shapes (QUERY_HASH_SHAPES), where its product takes the chain plan:
+    the codes within the near-zero bound of the plain version and equal,
+    bit for bit, to the same rows' codes inside a batch of
+    QUERY_HASH_BATCH rows that a tile fills; device ms a call (profiler:
+    the generation and the product, over QUERY_HASH_REPS calls) beside
+    ``ops.hash_bound``, the CUDA events over back-to-back calls and the
+    plain version's ms.  Returns {label: record}."""
+    import torch
+    from repro_torch.core.functions import seeded_projections, table_seed
+    from repro_torch.kernels import contracts, ops
+    from repro_torch.kernels.bilinear_hash import (
+        bilinear_hash_seeded, bilinear_hash_seeded_plain)
+    from repro_torch.kernels.ref import sign_flip_ratios
+    g = torch.Generator(device=dev).manual_seed(12)
+    reps, out = QUERY_HASH_REPS, {}
+    for label, n, d, k, tables in (QUERY_HASH_SHAPES if shapes is None
+                                   else shapes):
+        seeds = [table_seed(0, t) for t in range(tables)]
+        plan = contracts.choose_product(n, k, tables)
+        fill = contracts.choose_product(QUERY_HASH_BATCH, k, tables)
+        check(plan.chain and not fill.chain,
+              f"query hash at {label}: the chain plan, and a tile's at "
+              f"{QUERY_HASH_BATCH} rows")
+        batch = torch.randn((QUERY_HASH_BATCH, d), generator=g, device=dev)
+        x = batch[7:7 + n]        # odd rows: the copies' windows lead in
+        got = bilinear_hash_seeded(x, seeds, k)
+        whole = bilinear_hash_seeded(batch, seeds, k)
+        check(torch.equal(got, whole[:, 7:7 + n]),
+              f"query hash at {label}: the chain plan's codes equal the "
+              f"fill plan's bit for bit")
+        factors = [seeded_projections(s_, d, k, dev) for s_ in seeds]
+        r = sign_flip_ratios(x, factors, got,
+                             bilinear_hash_seeded_plain(x, seeds, k))
+        check(bool((r <= 1.0).all()),
+              f"query hash at {label}: every bit that differs from the "
+              f"plain version lies within the near-zero bound")
+        call = (lambda x=x, seeds=seeds, k=k:
+                bilinear_hash_seeded(x, seeds, k))
+        busy, kern = device_profile(
+            torch, lambda: [call() for _ in range(reps)], ("bh_seeded",))
+        check(busy > 0, f"the profiler saw the query hash at {label}")
+        bound = ops.hash_bound(n, d, k, g=tables, seeded=True)
+        ms = busy / reps
+        out[label] = dict(
+            n=n, d=d, k=k, tables=tables, device_ms=ms,
+            by_kernel={name: v[0] / reps for name, v in kern.items()},
+            events_ms=cuda_ms(torch, call, reps),
+            plain_ms=cuda_ms(torch, lambda x=x, seeds=seeds, k=k:
+                             bilinear_hash_seeded_plain(x, seeds, k), 20),
+            bound_ms=bound.ms, bound_by=bound.by,
+            roofline_pct=100 * bound.ms / ms,
+            plan=dataclasses.asdict(plan), bits_differ=int(r.numel()))
+        print(f"query hash {label}: " + json.dumps(out[label]), flush=True)
+        del batch, x, got, whole, factors
+        torch.cuda.empty_cache()
+    return out
 
 
 def _sync(torch, dev) -> None:
@@ -1930,6 +2000,8 @@ def contracts_phase(build_mod) -> dict:
           "every launch of the sweep is the one its library plans")
     smem = {}
     for lib, frag in ((bilinear_hash.FACTORS_LIBRARY, "bilinear_hash_kernel"),
+                      (bilinear_hash.FACTORS_LIBRARY,
+                       "bilinear_hash_transpose_kernel"),
                       (bilinear_hash.LIBRARY, "bh_seeded_product_kernel"),
                       (bilinear_hash.LIBRARY, "bh_seeded_generate_kernel"),
                       (lbh_grad.LIBRARY, "lbh_chain_kernel"),
@@ -2744,6 +2816,9 @@ def main() -> int:
         max_abs_err=int(ratios.numel() + q_ratios.numel() > 0), ms=hash_ms,
         plain_ms=hash_plain_ms, bound_ms=fit_bound.ms, bound_by=fit_bound.by,
         library_ms=lib_ms)
+
+    phase("3b hash kernel at the cells' query shapes")
+    records["bilinear_hash_seeded"]["query_shapes"] = query_hash_phase(dev)
 
     # -- 4. scan kernels vs plain at the query shape ------------------------
     phase("4 scan kernels vs plain")

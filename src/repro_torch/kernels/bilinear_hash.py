@@ -13,17 +13,22 @@ codes = pack( sgn((X U) .* (X V)) ), LSB-first, bits past k set to 0.
   all G tables.
 
 Both run the d-tiled product of ``csrc/bilinear_product.cuh``, whose
-shared memory does not depend on d: any d >= 1 and any k >= 1 launch.
+shared memory does not depend on d: any d >= 1 and any k >= 1 launch.  At
+few rows (a micro-batch of query normals) it takes the chain plan, a lane
+per (row, column) over the card; the seeded wrapper counts each launch
+that does in the open span's ``hash_chain_plan``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (bilinear_hash_ref,
                                      bilinear_hash_seeded_ref)
+from repro_torch.utils import trace
 from repro_torch.utils.bits import n_words
 
 LIBRARY = "bilinear_hash_seeded"
@@ -38,6 +43,9 @@ _FACTORS_SIGNATURES = {
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "bh_plan": (ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
+# threads of a tile plan's block (bprod::kThreads); a chain plan's block
+# is the fewest warps that hold a row's columns, at most 128 threads
+TILE_THREADS = 256
 
 
 def bilinear_hash_plain(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
@@ -126,13 +134,28 @@ def bilinear_hash_seeded_plain(x: torch.Tensor, seeds, k: int):
                         for s in seeds])
 
 
+@functools.lru_cache(maxsize=256)
+def takes_chain_plan(device: int, n: int, d: int, k: int, g: int) -> bool:
+    """Whether the seeded hash of (n, d) rows, k bits and g tables on card
+    ``device`` takes the chain plan, as the library's ``bh_seeded_plan``
+    reports it (once per shape)."""
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    out = (ctypes.c_int64 * 12)()
+    with torch.cuda.device(device):
+        err = lib.bh_seeded_plan(n, d, k, g, out)
+    if err != 0:
+        raise RuntimeError(f"bh_seeded_plan failed: CUDA error {err}")
+    return out[6 + 3] != TILE_THREADS
+
+
 def bilinear_hash_seeded(x: torch.Tensor, seeds, k: int) -> torch.Tensor:
     """Packed seeded-BH codes for len(seeds) tables: (G, n, ceil(k/32))
     int32, pad bits past k set to 0.
 
     x: (n, d) float32, contiguous; seeds: uint32 python ints.  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (and counts
-    the launch in ``bilinear_hash_seeded.launches``) or raises.
+    the launch in ``bilinear_hash_seeded.launches``, and one that takes
+    the chain plan in the open span's ``hash_chain_plan``) or raises.
     """
     if x.device.type == "cpu":
         return bilinear_hash_seeded_plain(x, seeds, k)
@@ -158,6 +181,8 @@ def bilinear_hash_seeded(x: torch.Tensor, seeds, k: int) -> torch.Tensor:
         raise RuntimeError(f"bilinear_hash_seeded launch failed: CUDA error "
                            f"{err}")
     _build.count(bilinear_hash_seeded)
+    if takes_chain_plan(x.device.index, n, d, k, g):
+        trace.add("hash_chain_plan", 1)
     return out
 
 

@@ -253,6 +253,15 @@ def _round_up(a: int, b: int) -> int:
     return _cdiv(a, b) * b
 
 
+CHAIN = 0                    # ProductPlan.tm of the chain plan (bprod::kChain)
+CHAIN_STAGES = 4
+CHAIN_UNROLL = 8             # d of a group of a chain's FMAs
+CHAIN_AHEAD = 3              # groups a chain's loads run ahead
+CHAIN_SMEM = 200 * 1024
+MAX_COLS = 128               # columns a pass holds (bprod::kMaxCols)
+CHAIN_ROWS = CHAIN_COLS = 4  # a chain block's rows and columns
+
+
 @dataclasses.dataclass(frozen=True)
 class ProductPlan:
     tm: int
@@ -263,13 +272,19 @@ class ProductPlan:
     passes: int
     row_blocks: int
     smem: int
+    threads: int = THREADS
+    td: int = 32                 # d per tile (a chain plan's stage)
+
+    @property
+    def chain(self) -> bool:
+        return self.tm == CHAIN
 
 
 def product_plan(tm: int, tn: int, n: int, k: int, groups: int) -> ProductPlan:
     """``bprod::make_plan``."""
     kp = _round_up(k, tn)
     cols = groups * kp
-    cpw = cols if cols < 128 else 128 // tn * tn
+    cpw = cols if cols < MAX_COLS else MAX_COLS // tn * tn
     ncg = cpw // tn
     rg = THREADS // ncg
     if rg * tm > 256:
@@ -290,12 +305,37 @@ def product_plan(tm: int, tn: int, n: int, k: int, groups: int) -> ProductPlan:
     return ProductPlan(tm, tn, rg, ncg, cols, passes, _cdiv(n, br), smem)
 
 
+def chain_plan(n: int, k: int, groups: int, sms: int = SMS) -> ProductPlan:
+    """``bprod::make_chain_plan``: blocks of CHAIN_ROWS rows x CHAIN_COLS
+    columns (grid x the row groups, y the column groups), a warp of their
+    32 chains and one that fills the ring; the stage's d the largest of
+    512 .. 32 whose ring of CHAIN_STAGES fits CHAIN_SMEM and fits as many
+    blocks an SM as the grid has per SM (else 32)."""
+    cols = groups * k
+    br = min(CHAIN_ROWS, n)
+    row_blocks, col_blocks = _cdiv(n, br), _cdiv(cols, CHAIN_COLS)
+    budget = SMEM_PER_SM // _cdiv(row_blocks * col_blocks, sms)
+    budget = (CHAIN_SMEM if budget > SMEM_RESERVED + CHAIN_SMEM
+              else budget - SMEM_RESERVED)
+
+    def smem(td):
+        # the mbarriers, then stages of x rows and factor columns of td + 4
+        # floats, then the slack a chain's loads may read past the last
+        stage = (br + 2 * CHAIN_COLS) * (td + 4)
+        return (16 * CHAIN_STAGES
+                + (CHAIN_STAGES * stage + CHAIN_AHEAD * CHAIN_UNROLL + 4) * 4)
+
+    td = next((t for t in (512, 256, 128, 64) if smem(t) <= budget), 32)
+    return ProductPlan(CHAIN, 1, br, 2 * CHAIN_COLS, cols, col_blocks,
+                       row_blocks, smem(td), 64, td)
+
+
 def choose_product(n: int, k: int, groups: int,
                    sms: int = SMS) -> ProductPlan:
     """``bprod::choose_plan``: the largest tile whose grid fills the card
     with 90% of a block's threads busy, else the largest that fills it,
-    else the one with the most blocks."""
-    best = filled = None
+    else the chain plan."""
+    filled = None
     for tm, tn in ((8, 4), (4, 4), (2, 2), (1, 1)):
         p = product_plan(tm, tn, n, k, groups)
         blocks = p.passes * p.row_blocks
@@ -303,25 +343,29 @@ def choose_product(n: int, k: int, groups: int,
             if 10 * p.rg * p.ncg >= 9 * THREADS:
                 return p
             filled = filled or p
-        if best is None or blocks > best.passes * best.row_blocks:
-            best = p
-    return filled or best
+    return filled or chain_plan(n, k, groups, sms)
 
 
 def launch_hash(n: int, d: int, k: int, groups: int | None = None) -> list:
     """``bilinear_hash`` (groups None) or ``bilinear_hash_seeded``
-    (groups tables): its launches, the seeded generation first."""
+    (groups tables): its launches, the seeded generation first; for the
+    chain plan ``bilinear_hash`` first copies its factors column-major."""
     if n < 1 or d < 1 or k < 1 or (groups is not None and groups < 1):
         raise ValueError(f"need n, d, k, groups >= 1, got {n}, {d}, {k}, "
                          f"{groups}")
     p = choose_product(n, k, groups or 1)
     out = []
+    # the chain plan's copy of x's rows: n d more elements
+    x_copy = n * d if p.chain else 0
     if groups is not None:
         out.append(Launch("bh_seeded_generate_kernel",
-                          (_cdiv(d * p.cols, 256), 1, 1), 256, 0))
+                          (_cdiv(d * p.cols + x_copy, 256), 1, 1), 256, 0))
+    elif p.chain:
+        out.append(Launch("bilinear_hash_transpose_kernel",
+                          (_cdiv(d * k + x_copy, 256), 1, 1), 256, 0))
     name = ("bh_seeded_product_kernel" if groups is not None
             else "bilinear_hash_kernel")
-    out.append(Launch(name, (p.row_blocks, p.passes, 1), THREADS, p.smem))
+    out.append(Launch(name, (p.row_blocks, p.passes, 1), p.threads, p.smem))
     return out
 
 
@@ -414,6 +458,7 @@ def launch_row_margins(b: int, c: int, d: int) -> Launch:
 
 # static shared memory of each kernel's ptxas report (bytes)
 STATIC_SMEM = {"bilinear_hash_kernel": 0, "bh_seeded_product_kernel": 0,
+               "bilinear_hash_transpose_kernel": 0,
                "bh_seeded_generate_kernel": 0, "lbh_chain_kernel":
                2 * LBH_COLS * 4, "topk_hist_kernel": 0,
                "topk_hist_dma_kernel": 0, "topk_fused_kernel": 0,
@@ -492,8 +537,11 @@ def other_cases():
             for b in (1, 3, 128, 2 ** 20):
                 yield Case("distance_batch", f"bn{block_n}-w{w}-b{b}",
                            (2 * block_n, w, b))
+    # the query shapes of tiny1m (10, 385, 20) and news20 (20, 26,215, 16)
+    # take the chain plan, as the 32-row one does; 1,000 rows at k 64 too
     for n, d, k in ((32, 385, 20), (1_060_000, 385, 20), (8192, 2048, 64),
-                    (1_060_000, 26_215, 256), (100, 1, 1)):
+                    (1_060_000, 26_215, 256), (100, 1, 1), (10, 385, 20),
+                    (20, 26_215, 16), (1000, 26_215, 64), (3, 5, 33)):
         yield Case("bilinear_hash", f"n{n}-d{d}-k{k}", (n, d, k))
         for g in (1, 4, 7):
             yield Case("bilinear_hash_seeded", f"g{g}-n{n}-d{d}-k{k}",
@@ -593,18 +641,21 @@ def plan_export(case: Case) -> tuple[str, str, tuple]:
             "row_margins": (margins.LIBRARY, "row_margins_plan", a)}[k]
 
 
-def library_plan(case: Case):
-    """The built library's own account of the case's launches, from its
-    ``*_plan`` export (needs the card): a list of (grid, threads,
-    dynamic shared memory, blocks per SM or 0), or the export's error
-    code where the library refuses the case."""
+def library_plan(case: Case, n: int | None = None):
+    """The built library's own account of the case's n launches (default:
+    the kernel's usual count), from its ``*_plan`` export (needs the
+    card): a list of (grid, threads, dynamic shared memory, blocks per SM
+    or 0), or the export's error code where the library refuses the
+    case."""
     library, export, args = plan_export(case)
     out = (ctypes.c_int64 * 18)()
     rc = getattr(_build.load(library, _LIBRARY_SIGNATURES[library]),
                  export)(*args, out)
     if rc:
         return rc
-    n = {"bilinear_hash_seeded": 2, "shard_select": 3}.get(case.kernel, 1)
+    if n is None:
+        n = {"bilinear_hash_seeded": 2, "shard_select": 3}.get(case.kernel,
+                                                                1)
     return [(tuple(out[6 * i:6 * i + 3]), out[6 * i + 3], out[6 * i + 4],
              out[6 * i + 5]) for i in range(n)]
 
@@ -620,11 +671,11 @@ def compare_plans() -> dict:
     for case, got in sweep():
         if isinstance(got, ValueError):
             continue
-        theirs = library_plan(case)
+        mine = got if isinstance(got, list) else [got]
+        theirs = library_plan(case, len(mine))
         if isinstance(theirs, int):
             wrong.append((case.case_id, f"the library refuses: {theirs}"))
             continue
-        mine = got if isinstance(got, list) else [got]
         if case.kernel == "hist_dma":
             per_sm = theirs[0][3]
             bound = resident_blocks(mine[0].threads, mine[0].dynamic_smem)

@@ -22,12 +22,14 @@
 //      as (d, G kp) with the pad columns zero (kp = k rounded up to the
 //      product's column tile), into a stream-ordered workspace
 //      (cudaMallocAsync; 2 G d kp floats, 246 KB at the serving shape, so it
-//      stays in L2): one thread per factor element, G d kp / 256 blocks;
+//      stays in L2): one thread per factor element, G d kp / 256 blocks; for
+//      the chain plan column-major (kp = k, columns padded to 4 floats);
 //  (b) the d-tiled product of bilinear_product.cuh over those factors,
 //      each block looping over all G tables on its staged x slice, so x is
 //      read once for all tables (one column pass while G kp <= 128).
-// At the query shape (32 rows) the product takes the (1, 1) thread tile and
-// splits the 80 columns and the rows over several blocks.  Any d >= 1.
+// At a query shape (10-32 normals, too few rows for a tile to fill the
+// card) the product takes the chain plan: a lane per (row, column), the
+// d-ordered chains spread over the card.  Any d >= 1.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,13 +40,18 @@ namespace {
 
 constexpr uint32_t kGold = 0x9E3779B9u;
 constexpr uint32_t kFnv = 0x01000193u;
-// the workspace pool keeps this much freed memory for the next call
-constexpr uint64_t kPoolKeepBytes = 64ull << 20;
 constexpr int kGenThreads = 256;        // threads of a generation block
 
-// Blocks of a generation launch over elems factor elements of U (and V).
+// Blocks of a generation launch over elems elements.
 unsigned gen_blocks(int64_t elems) {
   return static_cast<unsigned>((elems + kGenThreads - 1) / kGenThreads);
+}
+
+// The generation's elements: the d G kp of U (and V), and for the chain
+// plan the n d of x's copy.
+int64_t gen_elems(const bprod::Plan& p, int n, int d) {
+  return static_cast<int64_t>(d) * p.cols +
+         (p.tm == bprod::kChain ? static_cast<int64_t>(n) * d : 0);
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -70,17 +77,38 @@ __device__ __forceinline__ float seeded_gaussian(uint32_t s, uint32_t row,
 }
 
 // u, v: (d, G kp); element (row, g kp + j) is table g's factor (row, j)
-// for j < k, else 0.
+// for j < k, else 0.  For the chain plan (cm > 0) the same elements go
+// column-major, column c at c cm (rows d .. cm are not written), the n
+// rows of x are copied to xc at r cm, and the codes' zw words are zeroed:
+// threads d G kp .. d G kp + n d copy x.
 __global__ void __launch_bounds__(kGenThreads)
 bh_seeded_generate_kernel(const uint32_t* __restrict__ seeds,
                           float* __restrict__ u, float* __restrict__ v,
-                          int d, int k, int kp, int groups) {
+                          int d, int k, int kp, int groups, int cm,
+                          const float* __restrict__ x, float* __restrict__ xc,
+                          int n, uint32_t* __restrict__ codes, int64_t zw) {
   const int cols = groups * kp;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
+  int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cm > 0) {
+    for (int64_t i = e; i < zw; i += static_cast<int64_t>(gridDim.x) *
+                                       blockDim.x) {
+      codes[i] = 0u;
+    }
+    const int64_t f = static_cast<int64_t>(d) * cols;
+    if (e >= f) {
+      e -= f;
+      if (e < static_cast<int64_t>(n) * d) {
+        const int64_t r = e / d;
+        xc[r * cm + (e - r * d)] = x[e];
+      }
+      return;
+    }
+  }
   if (e >= static_cast<int64_t>(d) * cols) return;
-  const int row = static_cast<int>(e / cols);
-  const int c = static_cast<int>(e - static_cast<int64_t>(row) * cols);
+  // consecutive threads write consecutive elements of either layout
+  const int64_t q = cm > 0 ? e / d : e / cols;
+  const int row = static_cast<int>(cm > 0 ? e - q * d : q);
+  const int c = static_cast<int>(cm > 0 ? q : e - q * cols);
   const int g = c / kp, j = c - g * kp;
   float fu = 0.0f, fv = 0.0f;
   if (j < k) {
@@ -88,8 +116,9 @@ bh_seeded_generate_kernel(const uint32_t* __restrict__ seeds,
     fu = seeded_gaussian(fmix32(seed), row, j);           // tag 0: U
     fv = seeded_gaussian(fmix32(seed + kGold), row, j);   // tag 1: V
   }
-  u[e] = fu;
-  v[e] = fv;
+  const int64_t at = cm > 0 ? static_cast<int64_t>(c) * cm + row : e;
+  u[at] = fu;
+  v[at] = fv;
 }
 
 template <int TM, int TN>
@@ -101,28 +130,14 @@ bh_seeded_product_kernel(const float* __restrict__ x,
                          int ld, int climit, const bprod::Plan p,
                          bool merge) {
   extern __shared__ float4 smem4[];
-  bprod::product_block<TM, TN>(reinterpret_cast<float*>(smem4), x, u, v,
-                               codes, n, d, k, ld, climit, p, merge);
+  bprod::plan_block<TM, TN>(reinterpret_cast<float*>(smem4), x, u, v, codes,
+                            n, d, k, ld, climit, p, merge);
 }
 
 template <int TM, int TN>
 struct Kernel {
   static constexpr auto fn = bh_seeded_product_kernel<TM, TN>;
 };
-
-// Let the device's default pool keep the workspace between calls instead
-// of returning it at every synchronise.
-cudaError_t keep_pool(int dev) {
-  static bool done[64] = {};
-  if (dev < 0 || dev >= 64 || done[dev]) return cudaSuccess;
-  cudaMemPool_t pool;
-  cudaError_t err = cudaDeviceGetDefaultMemPool(&pool, dev);
-  if (err != cudaSuccess) return err;
-  uint64_t keep = kPoolKeepBytes;
-  err = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
-  if (err == cudaSuccess) done[dev] = true;
-  return err;
-}
 
 }  // namespace
 
@@ -136,26 +151,35 @@ extern "C" int bh_seeded_launch(const void* x, const void* seeds,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0;
+  cudaError_t err = bprod::device_sms(&sms);
   if (err != cudaSuccess) return err;
-  if ((err = bprod::device_sms(&sms)) != cudaSuccess) return err;
-  if ((err = keep_pool(dev)) != cudaSuccess) return err;
+  if ((err = bprod::keep_pool()) != cudaSuccess) return err;
   const bprod::Plan p = bprod::choose_plan(n, k, groups, sms);
-  const int64_t elems = static_cast<int64_t>(d) * p.cols;
+  // the chain plan's factors column-major and x's rows, each padded to
+  // chain_ld(d), and its codes zeroed
+  const bool chain = p.tm == bprod::kChain;
+  const int ld = chain ? bprod::chain_ld(d) : p.cols;
+  const int64_t elems = static_cast<int64_t>(chain ? ld : d) * p.cols;
+  const int64_t x_elems = chain ? static_cast<int64_t>(ld) * n : 0;
   float* work = nullptr;
   err = cudaMallocAsync(reinterpret_cast<void**>(&work),
-                        2 * elems * sizeof(float), s);
+                        (2 * elems + x_elems) * sizeof(float), s);
   if (err != cudaSuccess) return err;
   float* u = work;
   float* v = work + elems;
-  bh_seeded_generate_kernel<<<gen_blocks(elems), kGenThreads, 0, s>>>(
-      static_cast<const uint32_t*>(seeds), u, v, d, k, p.kp, groups);
+  float* xc = work + 2 * elems;
+  const auto* fx = static_cast<const float*>(x);
+  auto* out = static_cast<uint32_t*>(codes);
+  bh_seeded_generate_kernel<<<gen_blocks(gen_elems(p, n, d)), kGenThreads, 0,
+                              s>>>(
+      static_cast<const uint32_t*>(seeds), u, v, d, k, p.kp, groups,
+      chain ? ld : 0, fx, xc, n, out,
+      static_cast<int64_t>(groups) * n * ((k + 31) / 32));
   err = cudaGetLastError();
   if (err == cudaSuccess) {
-    err = bprod::launch_product<Kernel>(
-        p, static_cast<const float*>(x), u, v, static_cast<uint32_t*>(codes),
-        n, d, k, groups, p.cols, p.cols, s);
+    err = bprod::launch_product<Kernel>(p, chain ? xc : fx, u, v, out, n, d,
+                                        k, groups, ld, p.cols, s);
   }
   const cudaError_t freed = cudaFreeAsync(work, s);
   return err != cudaSuccess ? err : freed;
@@ -173,8 +197,7 @@ extern "C" int bh_seeded_plan(int n, int d, int k, int groups, int64_t* out) {
   const cudaError_t err = bprod::device_sms(&sms);
   if (err != cudaSuccess) return err;
   const bprod::Plan p = bprod::choose_plan(n, k, groups, sms);
-  lplan::put(out, gen_blocks(static_cast<int64_t>(d) * p.cols), 1, 1,
-             kGenThreads, 0, 0);
+  lplan::put(out, gen_blocks(gen_elems(p, n, d)), 1, 1, kGenThreads, 0, 0);
   bprod::put_plan(out + 6, p);
   return 0;
 }

@@ -70,6 +70,7 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
 #include "hamming_select.cuh"
 #include "launch_plan.cuh"
 
@@ -140,47 +141,11 @@ inline DmaPlan plan_dma(int w, int block_n, int l_k, int nq) {
   return pl;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  }
-}
-
-// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global src to shared dst, completing on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar)) : "memory");
-}
+using bulk::bulk_copy;
+using bulk::mbar_arrive;
+using bulk::mbar_arrive_tx;
+using bulk::mbar_init;
+using bulk::mbar_wait;
 
 template <typename U, int kBits, bool kWide, typename DT, typename IT>
 __global__ void __launch_bounds__(kThreads)
@@ -394,7 +359,7 @@ topk_hist_dma_kernel(const uint32_t* __restrict__ codes,
       const uint32_t bytes = static_cast<uint32_t>(hi - lo) * 4u;
       mbar_arrive_tx(full + st, bytes);
       // order the slot's earlier generic-proxy use before the async write
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk::fence_proxy_async();
       bulk_copy(dst + (lo - a), codes + lo, bytes, full + st);
     } else {
       mbar_arrive(full + st);
@@ -406,7 +371,7 @@ topk_hist_dma_kernel(const uint32_t* __restrict__ codes,
       mbar_init(full + i, 1);
       mbar_init(empty + i, groups * hsel::kWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bulk::fence_mbar_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {

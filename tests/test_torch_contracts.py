@@ -144,6 +144,85 @@ def test_launch_geometry_at_the_serving_shape():
         C.launch_scan("fused", 1, 10, 8, 1, 4, 256, pack="8")
 
 
+# -- the hash product's plans ----------------------------------------------
+
+# (n, k, G) of the query micro-batches: news20's 20 normals, tiny1m's 10
+# and a batch of 32; a tile's grid fills none of them
+@pytest.mark.parametrize("n,k,g", [(20, 16, 1), (10, 20, 1), (32, 20, 1)])
+def test_query_shapes_take_the_chain_plan(n, k, g):
+    p = C.choose_product(n, k, g)
+    assert p.chain and p.tm == C.CHAIN
+    # blocks of 4 rows x 4 columns: a warp of their 32 chains (each the u
+    # or the v product of a row and column) and one that fills the ring
+    assert p.cols == g * k and p.threads == 64 and p.ncg == 8
+    assert p.rg == 4 and p.row_blocks == -(-n // 4)
+    assert p.passes == -(-g * k // 4)
+    assert p.row_blocks * p.passes <= C.SMS
+    # one block an SM: the widest stage that fits the ring's budget
+    assert p.td == 512 and p.smem <= C.CHAIN_SMEM
+    gen, prod = C.launch_hash(n, 385, k, g)
+    assert prod.threads == 64 and prod.grid == (p.row_blocks, p.passes, 1)
+    # the generation also copies x's rows, padded, for the bulk copies
+    assert gen.grid == (-(-(385 * g * k + n * 385) // 256), 1, 1)
+
+
+# today's fill plans, field by field: news20's fit, tiny1m's fit, a card of
+# the four-card fit, an insert batch of 2,000 rows
+@pytest.mark.parametrize("n,k,g,want", [
+    (18_846, 16, 1, (2, 2, 32, 8, 16, 1, 295, 25600)),
+    (1_060_000, 20, 1, (4, 4, 51, 5, 20, 1, 5197, 68608)),
+    (19_840_505, 20, 1, (4, 4, 51, 5, 20, 1, 97258, 68608)),
+    (2000, 20, 1, (1, 1, 12, 20, 20, 1, 167, 19456)),
+])
+def test_fill_shapes_keep_their_plans(n, k, g, want):
+    p = C.choose_product(n, k, g)
+    assert not p.chain
+    assert (p.tm, p.tn, p.rg, p.ncg, p.cols, p.passes, p.row_blocks,
+            p.smem) == want
+    assert (p.threads, p.td) == (C.THREADS, 32)
+
+
+def test_chain_ring_shrinks_where_blocks_share_an_sm():
+    """1,000 rows of 20 columns: 250 x 5 blocks, 10 an SM, so the ring
+    takes 64 d a stage and all of them are resident at once; any number of
+    columns takes the chain plan (a block holds 4 of them)."""
+    p = C.choose_product(1000, 20, 1)
+    assert p.chain and (p.row_blocks, p.passes, p.td) == (250, 5, 64)
+    assert 10 * (p.smem + C.SMEM_RESERVED) <= C.SMEM_PER_SM
+    wide = C.choose_product(32, 20, 7)
+    assert wide.chain and wide.passes == 35
+    assert C.chain_plan(3, 1, 1).rg == 3
+
+
+@pytest.mark.parametrize("g", [1, 4, 7])
+def test_every_product_launch_is_named_for_hash_roofline(g):
+    """The benchmark finds the seeded hash's device time by name: each
+    launch of kernel 1, at every plan, holds one of its fragments; kernel
+    4's product keeps ``bilinear_hash_kernel``."""
+    from perfbench.metrics import hash_roofline
+    for n, d, k in ((10, 385, 20), (20, 26_215, 16), (32, 385, 20),
+                    (2000, 385, 20), (1_060_000, 385, 20)):
+        for launch in C.launch_hash(n, d, k, g):
+            assert any(f in launch.kernel for f in hash_roofline.FRAGMENTS)
+        factors = [la.kernel for la in C.launch_hash(n, d, k)]
+        assert factors[-1] == "bilinear_hash_kernel"
+        assert factors[:-1] == (["bilinear_hash_transpose_kernel"]
+                                if C.choose_product(n, k, 1).chain else [])
+
+
+def test_the_hash_kernels_sweep_holds_every_contract():
+    cases = [(case, got) for case, got in C.sweep()
+             if case.kernel in ("bilinear_hash", "bilinear_hash_seeded")]
+    assert len(cases) >= 30
+    chains = 0
+    for case, got in cases:
+        assert not isinstance(got, ValueError), case.case_id
+        for launch in (got if isinstance(got, list) else [got]):
+            assert C.check_launch(launch, case.case_id) == []
+            chains += launch.threads < C.THREADS
+    assert chains >= 10
+
+
 # -- the capture sentinel --------------------------------------------------
 
 class _Graphs:

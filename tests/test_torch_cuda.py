@@ -76,6 +76,8 @@ def test_kernels_build_for_sm90a(cuda):
     (400, 26215, 20, [1, 2, 3, 4]),
     (200, 26215, 64, [8]),
     (32, 385, 20, [1, 2, 3, 4]),            # the query shape
+    (20, 26215, 16, [8]),                   # news20's query micro-batch
+    (10, 385, 20, [1, 2, 3, 4]),            # tiny1m's, four tables
     (2000, 385, 20, [1, 2, 3, 4]),          # an insert batch
     (70, 50, 300, [9, 10]),                 # several column passes
 ])
@@ -91,6 +93,64 @@ def test_hash_kernel_vs_plain(cuda, n, d, k, seeds):
     factors = [seeded_projections(s, d, k, cuda) for s in seeds]
     ratios = sign_flip_ratios(x, factors, got, want)
     assert (ratios <= 1.0).all(), ratios.max()
+
+
+# (kernel, d, k, tables, rows of the fill batch): kernel 1 at G 1 and 4,
+# kernel 4, at tiny1m's and news20's widths; 33 bits cross a word
+@pytest.mark.parametrize("kernel,d,k,g,big", [
+    (1, 385, 20, 1, 2000), (1, 385, 20, 4, 600), (1, 26215, 16, 1, 2200),
+    (1, 26215, 16, 4, 600), (1, 101, 33, 1, 1500), (4, 385, 20, None, 2000),
+    (4, 26215, 16, None, 2200), (4, 99, 33, None, 1500),
+])
+def test_chain_plan_codes_equal_the_fill_plans(cuda, kernel, d, k, g, big):
+    """The same rows hashed alone (the chain plan, a lane per row and
+    column) and inside a batch that a tile fills give the same codes bit
+    for bit: both run each product's fmaf in increasing d from 0.0f.  The
+    small batches start at odd rows, so their windows have lead-ins."""
+    from repro_torch.kernels import contracts
+    rng = np.random.default_rng(d + k)
+    x = torch.from_numpy(rng.normal(size=(big, d)).astype(np.float32)).to(
+        cuda)
+    assert not contracts.choose_product(big, k, g or 1).chain
+    if kernel == 1:
+        seeds = [3, 0xFFFFFFFF, 17, 5][:g]
+        hash_ = lambda rows: bilinear_hash_seeded(rows, seeds, k)  # noqa
+    else:
+        u, v = (torch.from_numpy(rng.normal(size=(d, k)).astype(
+            np.float32)).to(cuda) for _ in range(2))
+        hash_ = lambda rows: bilinear_hash(rows, u, v)[None]  # noqa: E731
+    whole = hash_(x)
+    for lo, n in ((0, 1), (37, 20), (101, 10), (big - 32, 32), (5, 3)):
+        assert contracts.choose_product(n, k, g or 1).chain
+        part = hash_(x[lo:lo + n])
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, lo:lo + n]), (lo, n)
+    if k % 32:
+        assert not (whole[..., -1] >> (k % 32)).any()
+
+
+def test_hash_chain_plan_counts_the_query_hash(cuda):
+    """``hash_chain_plan`` in the open span: 1 a query micro-batch in
+    ``index.hash`` (10 normals take the chain plan), none in a fit."""
+    from repro_torch.serving.service import HashQueryService
+    from repro_torch.utils import trace
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4000, 385)).astype(np.float32)
+    ws = rng.normal(size=(30, 385)).astype(np.float32)
+    index = MultiTableIndex(IndexConfig(method="bh", bits=20, tables=1,
+                                        seed=4, compact_threshold=None),
+                            device=cuda)
+    with trace.session() as fit:
+        with trace.root("fit"):
+            index.fit(x)
+    assert fit.spans and all("hash_chain_plan" not in (s.counts or {})
+                             for s in fit.spans)
+    service = HashQueryService(index, mode="scan", scan_l=64, max_batch=10)
+    with trace.session() as sess:
+        service.query_batch(ws)
+    hashes = [s for s in sess.spans if s.name == "index.hash"]
+    assert len(hashes) == 3
+    assert all(s.counts == {"hash_chain_plan": 1} for s in hashes)
 
 
 def _scan_inputs(cuda, g, n, w, b, dead, seed=0, kind="random"):

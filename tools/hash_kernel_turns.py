@@ -8,13 +8,16 @@ DIR is another commit's tree (for example the parent, unpacked with
 ``git archive``).  The script builds ``bilinear_hash_seeded.cu`` (kernel 1)
 and ``bilinear_hash.cu`` (kernel 4) of both trees with the same nvcc flags,
 checks that both trees give the same codes bit for bit, and times each
-kernel at the shapes of its paths on the Tiny-1M geometry (385 float32
-features with the bias column, 20 bits, 4 tables for kernel 1; unit rows
-from ``--seed``): the fit (1,060,000 rows), an insert batch of the
-streaming path (2,000 rows) and a micro-batch of query normals (32 rows),
-in the order baseline, this tree, this tree, baseline: CUDA events over
-back-to-back calls, then the profiler's device time per call (every kernel
-the call launches).  Both libraries take the same C arguments
+kernel at the shapes of its paths (unit rows from ``--seed``): on the
+Tiny-1M geometry (385 float32 features with the bias column, 20 bits, 4
+tables for kernel 1) the fit (1,060,000 rows), an insert batch of the
+streaming path (2,000 rows) and a micro-batch of 32 query normals; then
+the one-card benchmark cells' shapes, one table: news20's fit (18,846 x
+26,215 at 16 bits) and the query micro-batches of both cells
+(``chip_smoke.QUERY_HASH_SHAPES``: news20's 20 normals, tiny1m's 10).  At
+each, in the order baseline, this tree, this tree, baseline: CUDA events
+over back-to-back calls, then the profiler's device time per call (every
+kernel the call launches).  Both libraries take the same C arguments
 (``bh_seeded_launch``, ``bh_launch``).  The last line is a JSON record of
 the times and the card.
 """
@@ -28,9 +31,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-D, BITS, TABLES = 385, 20, 4
-SHAPES = {"fit": 1_060_000, "insert batch": 2000, "query": 32}
-REPS = {"fit": 5, "insert batch": 50, "query": 200}
+# label: (rows, d, k, kernel 1's tables, calls timed)
+SHAPES = {"fit": (1_060_000, 385, 20, 4, 5),
+          "insert batch": (2000, 385, 20, 4, 50),
+          "query": (32, 385, 20, 4, 200),
+          "news20 fit": (18_846, 26_215, 16, 1, 5)}
 
 
 def main() -> int:
@@ -45,7 +50,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
-    from chip_smoke import cuda_ms, device_profile
+    from chip_smoke import (QUERY_HASH_REPS, QUERY_HASH_SHAPES, cuda_ms,
+                            device_profile)
     from repro_torch.core.functions import seeded_projections, table_seed
     from repro_torch.kernels import _build
     from repro_torch.kernels.bilinear_hash import (
@@ -69,35 +75,44 @@ def main() -> int:
                 getattr(lib, fn).restype, getattr(lib, fn).argtypes = res, argt
             libs[(label, name)] = lib
 
+    shapes = dict(SHAPES)
+    for label, n, d, k, tables in QUERY_HASH_SHAPES:
+        shapes[f"{label} query"] = (n, d, k, tables, QUERY_HASH_REPS)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    x_all = torch.randn((SHAPES["fit"], D), generator=gen, device=dev)
-    x_all /= torch.linalg.vector_norm(x_all, dim=1, keepdim=True)
-    seeds = [table_seed(0, t) for t in range(TABLES)]
-    seeds_dev = torch.tensor(seeds_as_int32(seeds), dtype=torch.int32,
-                             device=dev)
-    u0, v0 = seeded_projections(seeds[0], D, BITS, dev)
+    rows_of = {}                       # d -> the most rows a shape takes
+    for n, d, *_ in shapes.values():
+        rows_of[d] = max(rows_of.get(d, 0), n)
+    x_of = {}
+    for d, n in rows_of.items():
+        x_of[d] = torch.randn((n, d), generator=gen, device=dev)
+        x_of[d] /= torch.linalg.vector_norm(x_of[d], dim=1, keepdim=True)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def seeded(lib, x):
-        out = torch.empty((TABLES, x.shape[0], n_words(BITS)),
+    def seeded(lib, x, k, tables):
+        seeds = [table_seed(0, t) for t in range(tables)]
+        seeds_dev = torch.tensor(seeds_as_int32(seeds), dtype=torch.int32,
+                                 device=dev)
+        out = torch.empty((tables, x.shape[0], n_words(k)),
                           dtype=torch.int32, device=dev)
 
         def run():
             err = lib.bh_seeded_launch(x.data_ptr(), seeds_dev.data_ptr(),
-                                       out.data_ptr(), x.shape[0], D, BITS,
-                                       TABLES, stream)
+                                       out.data_ptr(), x.shape[0],
+                                       x.shape[1], k, tables, stream)
             if err:
                 raise RuntimeError(f"bh_seeded_launch: CUDA error {err}")
             return out
         return run
 
-    def factors(lib, x):
-        out = torch.empty((x.shape[0], n_words(BITS)), dtype=torch.int32,
+    def factors(lib, x, k, tables):
+        u0, v0 = seeded_projections(table_seed(0, 0), x.shape[1], k, dev)
+        out = torch.empty((x.shape[0], n_words(k)), dtype=torch.int32,
                           device=dev)
 
         def run():
             err = lib.bh_launch(x.data_ptr(), u0.data_ptr(), v0.data_ptr(),
-                                out.data_ptr(), x.shape[0], D, BITS, stream)
+                                out.data_ptr(), x.shape[0], x.shape[1], k,
+                                stream)
             if err:
                 raise RuntimeError(f"bh_launch: CUDA error {err}")
             return out
@@ -106,9 +121,9 @@ def main() -> int:
     results = []
     for kernel, name, make in (("1 (seeded)", LIBRARY, seeded),
                                ("4 (factors)", FACTORS_LIBRARY, factors)):
-        for shape, rows in SHAPES.items():
-            x = x_all[:rows]
-            runs = {lab: make(libs[(lab, name)], x)
+        for shape, (rows, d, k, tables, reps) in shapes.items():
+            x = x_of[d][:rows]
+            runs = {lab: make(libs[(lab, name)], x, k, tables)
                     for lab in ("baseline", "this")}
             a, b = (runs[lab]().clone() for lab in ("baseline", "this"))
             torch.cuda.synchronize()
@@ -117,7 +132,6 @@ def main() -> int:
                 diff = int((a != b).sum())
                 raise RuntimeError(f"kernel {kernel} at {shape}: {diff} code "
                                    f"words differ between the trees")
-            reps = REPS[shape]
             turns = [cuda_ms(torch, runs[lab], reps)
                      for lab in ("baseline", "this", "this", "baseline")]
             dev_ms = {}
@@ -125,9 +139,10 @@ def main() -> int:
                 busy, kern = device_profile(
                     torch, lambda r=runs[lab]: [r() for _ in range(reps)])
                 dev_ms[lab] = busy / reps
-                dev_ms[f"{lab}_kernels"] = sorted(kern)
-            rec = dict(kernel=kernel, shape=shape, rows=rows, d=D, k=BITS,
-                       tables=TABLES if name == LIBRARY else 1,
+                dev_ms[f"{lab}_kernels"] = {
+                    kn: v[0] / reps for kn, v in sorted(kern.items())}
+            rec = dict(kernel=kernel, shape=shape, rows=rows, d=d, k=k,
+                       tables=tables if name == LIBRARY else 1,
                        turns_ms_baseline_this_this_baseline=turns,
                        device_ms_per_call=dev_ms, identical=same)
             results.append(rec)
